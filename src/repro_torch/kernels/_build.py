@@ -1,0 +1,177 @@
+"""Build and load the port's CUDA kernels: ``csrc/*.cu`` -> one shared
+library with a plain C interface, bound with ``ctypes``.
+
+At the first kernel launch in a process, ``load_library`` compiles every
+source with its own ``nvcc`` (all started together), links the objects
+into ``build/repro_torch/<hash>/libkernels.so`` under the checkout, and
+loads it.  ``<hash>`` covers the sources and the flags, so an edited
+source builds anew and an unchanged one is reused.  A failed build raises;
+nothing falls back to the plain versions.
+
+Each C entry point takes a dtype code (``common.dtype_code``), raw device
+pointers, int64 sizes and the CUDA stream, launches on that stream without
+synchronizing, and returns ``cudaGetLastError()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info", "check_status", "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_SRC = _PKG / "csrc"
+_BUILD = _PKG.parents[1] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# name -> argtypes; every entry point returns a cudaError_t as int.
+_SIGNATURES = {
+    # dtype, x, a, acc, out, l, m, n, stream
+    "repro_sketch_accum": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, c, qp, l, b, stream
+    "repro_panel_factor": [_I, _P, _P, _I64, _I64, _P],
+    # dtype, qp, z, o, w (nullable), r2, l, b, n, stream
+    "repro_panel_sweep": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# Filled by load_library: library path, build seconds (0.0 when reused)
+# and the per-kernel ``-Xptxas -v`` report.
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(_SRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(_SRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+_TYPE_CODES = {"f": "float32", "d": "float64",
+               "N5repro4cplxIfEE": "complex64",
+               "N5repro4cplxIdEE": "complex128"}
+
+
+def _short_name(mangled: str) -> str:
+    """``panel_sweep_kernel<float64>`` from the mangled entry name."""
+    m = re.search(r"\d([a-z_]+_kernel)I(f|d|N5repro4cplxI[fd]EE)E", mangled)
+    return f"{m.group(1)}<{_TYPE_CODES[m.group(2)]}>" if m else mangled
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """Registers, shared memory and spills per kernel from ``-Xptxas -v``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": _short_name(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
+def _compile(dest: Path) -> str:
+    nvcc = _nvcc()
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=dest.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_SRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if p.returncode:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = Path(tmp) / "libkernels.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(lib), *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (Path(tmp) / "build.log").write_text(log)
+        os.replace(Path(tmp) / "build.log", dest.parent / "build.log")
+        os.replace(lib, dest)
+    return log
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use in this process."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        dest = _BUILD / _digest() / "libkernels.so"
+        t0 = time.perf_counter()
+        if dest.exists():
+            log = (dest.parent / "build.log").read_text()
+            seconds = 0.0
+        else:
+            log = _compile(dest)
+            seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(dest))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [_I]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        build_info.update(path=str(dest), seconds=seconds,
+                          ptxas=parse_ptxas(log))
+        _lib = lib
+        return lib
+
+
+def check_status(name: str, rc: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if rc:
+        what = load_library().repro_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc} ({what})")

@@ -1,0 +1,215 @@
+"""Parity of the port's kernel packages (``repro_torch.kernels``) with the
+JAX reference, on the CPU.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+side runs its Pallas kernels in interpret mode (real dtypes) or its jnp
+oracles (complex), exactly as the reference's own tests do.  Inputs are
+made with a seeded numpy generator and cross as numpy arrays.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.kernels.common import (acc_dtype_for, cdiv,  # noqa: E402
+                                        pad_to, round_up)
+from repro_torch.kernels.panel_step import panel_step  # noqa: E402
+from repro_torch.kernels.sketch_accum import (ACCUM_BLOCK,  # noqa: E402
+                                              sketch_accum)
+
+
+def _t(x):
+    """numpy -> torch on the CPU, dtype kept."""
+    return interop.to_torch(x, device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _x64_scope():
+    """f64 for this module only, restored afterwards (the x64 flag is
+    process-wide and would leak into other modules on the same worker)."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+DTYPES = ["float32", "float64", "complex64", "complex128"]
+
+
+def _rand(rng, shape, dtype):
+    dt = np.dtype(dtype)
+    if dt.kind == "c":
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(dt)
+    return rng.standard_normal(shape).astype(dt)
+
+
+def _is_single(dtype):
+    return dtype in ("float32", "complex64")
+
+
+# ------------------------------------------------------------------ common
+
+def test_common_helpers():
+    assert cdiv(7, 3) == 3 and cdiv(6, 3) == 2
+    assert round_up(129, 128) == 256
+    x = torch.ones((3, 5), dtype=torch.float64)
+    y = pad_to(x, (4, 8))
+    assert y.shape == (4, 8) and y.dtype == torch.float64
+    assert float(y.sum()) == 15.0 and pad_to(x, (3, 5)) is x
+    assert acc_dtype_for(torch.float64) == torch.float64
+    assert acc_dtype_for(torch.bfloat16) == torch.float32
+
+
+@pytest.mark.parametrize("dtype", DTYPES + ["int32"])
+def test_interop_roundtrip_keeps_dtype(dtype):
+    rng = np.random.default_rng(0)
+    x = (_rand(rng, (4, 3), dtype) if dtype != "int32"
+         else rng.integers(0, 9, (4, 3)).astype(np.int32))
+    t = _t(x[:, ::2])            # non-contiguous view in
+    back = interop.to_numpy(t)
+    assert back.dtype == x.dtype
+    np.testing.assert_array_equal(back, x[:, ::2])
+
+
+# ------------------------------------------------------------ sketch_accum
+
+@pytest.mark.parametrize("l,m,n", [(8, 128, 32), (24, 1000, 150),
+                                   (17, 300, 129)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sketch_accum_matches_jax_ref(l, m, n, dtype):
+    """The port's canonically blocked sum against JAX's
+    ``sketch_accum_ref``, ragged m and n included.  Tolerance
+    ``1e-4 sqrt(m)`` (single) / ``1e-10 sqrt(m)`` (double), as in
+    tests/test_kernels.py: the two libraries sum inside a block in
+    different orders, so bits are not expected to match."""
+    from repro.kernels.sketch_accum.ref import sketch_accum_ref
+    rng = np.random.default_rng(1)
+    x, a, acc = (_rand(rng, (l, m), dtype), _rand(rng, (m, n), dtype),
+                 _rand(rng, (l, n), dtype))
+    want = np.asarray(sketch_accum_ref(jnp.asarray(x), jnp.asarray(a),
+                                       jnp.asarray(acc)))
+    got = sketch_accum(_t(x), _t(a), _t(acc))
+    assert got.dtype == _t(acc).dtype
+    tol = (1e-4 if _is_single(dtype) else 1e-10) * np.sqrt(m)
+    np.testing.assert_allclose(interop.to_numpy(got), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sketch_accum_chunk_invariance(dtype):
+    """The replay pin: chunked calls at ACCUM_BLOCK multiples (an uneven
+    last chunk included) give the bits of one call."""
+    rng = np.random.default_rng(2)
+    m = 5 * ACCUM_BLOCK + 37
+    x = _t(_rand(rng, (16, m), dtype))
+    a = _t(_rand(rng, (m, 40), dtype))
+    whole = sketch_accum(x, a)
+    for cut in ([256, 640], [128, 384, 512]):
+        acc, r0 = None, 0
+        for r1 in cut + [m]:
+            acc = sketch_accum(x[:, r0:r1], a[r0:r1], acc)
+            r0 = r1
+        assert torch.equal(acc, whole), cut
+
+
+def test_sketch_accum_eager_validation():
+    with pytest.raises(ValueError, match=r"x columns \(64\) must match a "
+                                         r"rows \(128\)"):
+        sketch_accum(torch.ones(4, 64), torch.ones(128, 8))
+    with pytest.raises(ValueError, match=r"acc shape \(4, 7\) must be "
+                                         r"\(4, 8\)"):
+        sketch_accum(torch.ones(4, 64), torch.ones(64, 8), torch.ones(4, 7))
+
+
+# -------------------------------------------------------------- panel_step
+
+PS_TOL = {"float32": 1e-4, "complex64": 1e-4,
+          "float64": 1e-11, "complex128": 1e-11}
+
+
+@pytest.mark.parametrize("l,b,n", [(64, 32, 200), (48, 7, 129),
+                                   (40, 16, 300)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_step_matches_jax(l, b, n, dtype):
+    """The port's plain panel step against JAX: real dtypes against the
+    Pallas body in interpret mode, complex ones against
+    ``panel_step_ref``.  ``emit_w`` both ways; b=7 and b=16 are remainder
+    widths.  Tolerance relative to each output's largest entry (PS_TOL):
+    both factor in the working precision with different summation
+    orders."""
+    from repro.kernels.panel_step import panel_step as jax_panel_step
+    from repro.kernels.panel_step.ref import panel_step_ref
+    rng = np.random.default_rng(3)
+    c, z = _rand(rng, (l, b), dtype), _rand(rng, (l, n), dtype)
+    if np.dtype(dtype).kind == "c":
+        want = panel_step_ref(jnp.asarray(c), jnp.asarray(z))
+    else:
+        want = jax_panel_step(jnp.asarray(c), jnp.asarray(z))
+    got = panel_step(_t(c), _t(z))
+    for name, g, w in zip(("qp", "o", "w", "r2"), got, want):
+        g, w = interop.to_numpy(g), np.asarray(w)
+        assert g.shape == w.shape, name
+        scale = max(np.abs(w).max(), 1.0)
+        np.testing.assert_allclose(g, w, atol=PS_TOL[dtype] * scale, rtol=0,
+                                   err_msg=name)
+    qp, o, w_none, r2 = panel_step(_t(c), _t(z), emit_w=False)
+    assert w_none is None
+    assert torch.equal(o, got[1]) and torch.equal(r2, got[3])
+    assert r2.dtype == (qp.real.dtype if qp.is_complex() else qp.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_step_duplicate_columns_detectable(dtype):
+    """A duplicate-column panel: the port gives finite output whose factor
+    fails the callers' orthogonality check; the JAX kernel also fails that
+    check (there through a non-finite or non-orthonormal factor)."""
+    from repro.kernels.panel_step import panel_step as jax_panel_step
+    rng = np.random.default_rng(4)
+    c4 = _rand(rng, (64, 4), dtype)
+    c = np.concatenate([c4, c4], axis=1)
+    z = _rand(rng, (64, 100), dtype)
+    eps = np.finfo(np.dtype(dtype)).eps
+    qp, o, w, r2 = panel_step(_t(c), _t(z))
+    for t in (qp, o, w, r2):
+        assert bool(torch.isfinite(t).all())
+    orth = float((qp.mH @ qp - torch.eye(8, dtype=qp.dtype)).abs().max())
+    assert orth > np.sqrt(eps)
+    if np.dtype(dtype).kind != "c":
+        jq = np.asarray(jax_panel_step(jnp.asarray(c), jnp.asarray(z))[0])
+        bad = (not np.isfinite(jq).all()) or \
+            np.abs(jq.conj().T @ jq - np.eye(8)).max() > np.sqrt(eps)
+        assert bad
+
+
+def test_panel_step_eager_validation():
+    with pytest.raises(ValueError, match=r"c rows \(8\) must match z rows "
+                                         r"\(9\)"):
+        panel_step(torch.ones(8, 2), torch.ones(9, 4))
+
+
+# ------------------------------------------------- dispatch off the card
+
+def test_cpu_tensors_take_the_plain_version():
+    """CPU tensors never reach a kernel: the launch counts stay put."""
+    from repro_torch.kernels.panel_step.kernel import LAUNCHES as LP
+    from repro_torch.kernels.sketch_accum.kernel import LAUNCHES as LA
+    before = (LA.count, LP.count)
+    sketch_accum(torch.ones(4, 130), torch.ones(130, 3))
+    panel_step(torch.randn(16, 4, dtype=torch.float64),
+               torch.randn(16, 10, dtype=torch.float64))
+    assert (LA.count, LP.count) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The raw kernel wrappers take CUDA tensors only: a CPU tensor raises
+    rather than running anything."""
+    from repro_torch.kernels.panel_step.kernel import panel_step_kernel
+    from repro_torch.kernels.sketch_accum.kernel import sketch_accum_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        sketch_accum_kernel(torch.ones(2, 3), torch.ones(3, 4),
+                            torch.ones(2, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_step_kernel(torch.ones(8, 2), torch.ones(8, 4))
