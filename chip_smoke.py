@@ -11,16 +11,24 @@ in order, printing one JSON line per phase:
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
-                 (bit-exact); a duplicate-column panel;
+                 (bit-exact); duplicate-column panels;
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
-                 k=400, m=2^16, n=2^14), with the launch counts of both
+                 k=400, m=2^16, n=2^14), with the launch counts of its
                  kernels and the paper's eq. (3) bound;
   4. default  -- ``rid(seed, A, 100)`` (srft) on a complex128 ``A`` of
                  2^14 x 2^14 (the paper's row k=100, m=n=2^14);
-  5. times    -- each kernel's time at the main path's shapes beside its
+  5. distributed -- ``rid_distributed(seed, A_loc, 400, group=g,
+                 qr_impl="panel_parallel")`` on a one-rank NCCL group at
+                 the main path's matrix: launch counts, first and warm wall
+                 time, peak memory, eq. (3), pivot overlap with ``rid``;
+  6. gram     -- ``panel_parallel_pivoted_qr(Y, 400, group=g,
+                 panel_impl="gram")`` on that sketch, against the fused path;
+  7. c128     -- ``rid_distributed(..., qr_impl="panel_parallel")`` on a
+                 complex128 ``A`` of 2^14 x 2^14, k=100;
+  8. times    -- each kernel's time at the main path's shapes beside its
                  bound, its plain version's time and the library call's;
-  6. trace    -- the main path once more: the sketch and the rest timed
+  9. trace    -- the main path once more: the sketch and the rest timed
                  apart, then one ``rid`` under ``torch.profiler`` (device
                  time by kernel, device idle share).
 
@@ -31,10 +39,12 @@ the rest of the repository beside it, the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -97,14 +107,25 @@ def main() -> int:
               "runs only on a CUDA device", file=sys.stderr)
         return 2
     try:
-        from repro_torch.core import (error_bound, expected_sigma_kp1, rid,
-                                      rid_from_sketch, sketch,
-                                      spectral_error)
+        import torch.distributed as dist
+        from repro_torch.core import (error_bound, expected_sigma_kp1,
+                                      panel_parallel_pivoted_qr, rid,
+                                      rid_distributed, rid_from_sketch,
+                                      sketch, spectral_error)
         from repro_torch.kernels import _build
-        from repro_torch.kernels.panel_step import panel_step
+        from repro_torch.kernels.panel_gram import panel_gram
+        from repro_torch.kernels.panel_gram.kernel import (
+            LAUNCHES as GRAM_LAUNCHES)
+        from repro_torch.kernels.panel_gram.ref import panel_gram_ref
+        from repro_torch.kernels.panel_step import (panel_apply, panel_coeff,
+                                                    panel_step)
+        from repro_torch.kernels.panel_step.kernel import (
+            APPLY_LAUNCHES, APPLY_NORMS_LAUNCHES, COEFF_LAUNCHES)
         from repro_torch.kernels.panel_step.kernel import (
             LAUNCHES as PANEL_LAUNCHES)
-        from repro_torch.kernels.panel_step.ref import panel_step_ref
+        from repro_torch.kernels.panel_step.ref import (
+            colnorms2, panel_apply_norms_ref, panel_apply_ref,
+            panel_coeff_ref, panel_step_ref)
         from repro_torch.kernels.sketch_accum import sketch_accum
         from repro_torch.kernels.sketch_accum.kernel import (
             LAUNCHES as ACCUM_LAUNCHES)
@@ -159,8 +180,20 @@ def main() -> int:
           "build_seconds": round(build_s, 3),
           "ptxas": _build.build_info["ptxas"]})
 
+    def max_abs(got, want) -> float:
+        return max(float((u - v).abs().max()) for u, v in zip(got, want))
+
+    def panel_orth(qp) -> float:
+        eye = torch.eye(qp.shape[1], dtype=qp.dtype, device=dev)
+        return float((qp.mH @ qp - eye).abs().max())
+
+    def sqrt_eps(dtype) -> float:
+        return math.sqrt(torch.finfo(dtype.to_real() if dtype.is_complex
+                                     else dtype).eps)
+
     # --------------------------------------- 2. kernels vs plain versions
     accum_err_f64 = panel_err_f64 = None
+    split_err_f64 = {}          # max abs error at f64, b=32, per kernel
     for dtype in (torch.float32, torch.float64, torch.complex64,
                   torch.complex128):
         name, tol = dname(dtype), REL_TOL[dname(dtype)]
@@ -218,52 +251,251 @@ def main() -> int:
         c16 = randn((l, PANEL // 2), dtype)
         cdup = torch.cat([c16, c16], dim=1)
         qp, o, _, r2 = panel_step(cdup, z, emit_w=False)
-        eye = torch.eye(PANEL, dtype=dtype, device=dev)
-        orth = float((qp.mH @ qp - eye).abs().max())
-        finite = bool(torch.isfinite(qp).all() and torch.isfinite(o).all()
-                      and torch.isfinite(r2).all())
+        orth = panel_orth(qp)
+        finite = all(bool(torch.isfinite(t).all()) for t in (qp, o, r2))
         emit({"phase": "kernels", "kernel": "panel_step",
               "case": "duplicate columns", "dtype": name, "finite": finite,
               "orth_err": orth})
-        check(finite and orth > math.sqrt(torch.finfo(dtype.to_real()
-                                                       if dtype.is_complex
-                                                       else dtype).eps),
+        check(finite and orth > sqrt_eps(dtype),
               f"panel_step {name}: duplicate panel finite={finite} "
               f"orth={orth}")
-        del z, c, qp, o, w, r2, qp2, o2, r22, ref
+        del c, qp, o, w, r2, qp2, o2, r22, ref
+
+        # The distributed engine's split panel (stage A, stage B in both
+        # modes) and the gram oracle's pass, on the same residual.
+        r2in = colnorms2(z)
+        r2in[::7] = -1.0                       # picked columns' sentinel
+        for b in (PANEL, MAIN_K % PANEL):
+            c = randn((l, b), dtype)
+            coeff = panel_coeff(c, z, r2in)
+            qp, w = coeff[0], coeff[1]
+            apply = panel_apply(qp, w, z)
+            apply_n = panel_apply(qp, w, z, emit_norms=True)
+            gram = panel_gram(c, z)
+            checks = {
+                "panel_coeff": (coeff, panel_coeff_ref(c, z, r2in)),
+                "panel_apply": ((apply,), (panel_apply_ref(qp, w, z),)),
+                "panel_apply(emit_norms)": (apply_n,
+                                            panel_apply_norms_ref(qp, w, z)),
+                "panel_gram": (gram, panel_gram_ref(c, z)),
+            }
+            torch.cuda.synchronize()
+            same = bool(torch.equal(apply, apply_n[0]))
+            for kname, (got, want) in checks.items():
+                errs = [rel_err(u, v) for u, v in zip(got, want)]
+                err_abs = max_abs(got, want)
+                emit({"phase": "kernels", "kernel": kname, "dtype": name,
+                      "l": l, "b": b, "n": n, "rel_err": max(errs),
+                      "rel_tol": tol, "max_abs_err": err_abs})
+                check(max(errs) <= tol,
+                      f"{kname} {name} b={b}: rel errs {errs} > {tol}")
+                if dtype == torch.float64 and b == PANEL:
+                    split_err_f64[kname] = err_abs
+            check(same, f"panel_apply {name} b={b}: emit_norms changes O")
+            check(bool((coeff[2][::7] == 0).all()),
+                  f"panel_coeff {name} b={b}: sentinel columns not clamped")
+            del c, coeff, qp, w, apply, apply_n, gram, checks
+        qp, w, r2 = panel_coeff(cdup, z, r2in)
+        finite = all(bool(torch.isfinite(t).all()) for t in (qp, w, r2))
+        orth = panel_orth(qp)
+        emit({"phase": "kernels", "kernel": "panel_coeff",
+              "case": "duplicate columns", "dtype": name, "finite": finite,
+              "orth_err": orth})
+        check(finite and orth > sqrt_eps(dtype),
+              f"panel_coeff {name}: duplicate panel finite={finite} "
+              f"orth={orth}")
+        del z, qp, w, r2, r2in, cdup
         torch.cuda.empty_cache()
 
     # ----------------------------------------- 3. main path, f64 gaussian
     def lowrank(m, n, k, dtype):
         return randn((m, k), dtype) @ randn((k, n), dtype)
 
+    split_counters = {"panel_coeff": COEFF_LAUNCHES,
+                      "panel_apply": APPLY_LAUNCHES,
+                      "panel_apply(emit_norms)": APPLY_NORMS_LAUNCHES,
+                      "panel_gram": GRAM_LAUNCHES,
+                      "panel_step": PANEL_LAUNCHES,
+                      "sketch_accum": ACCUM_LAUNCHES}
+
+    def reset_counts():
+        for ctr in split_counters.values():
+            ctr.reset()
+
+    def read_counts() -> dict:
+        return {name: ctr.count for name, ctr in split_counters.items()}
+
+    def eq3_report(A, dec, k) -> dict:
+        m, n = A.shape
+        J = dec.J
+        eye = torch.eye(k, dtype=dec.P.dtype, device=dev)
+        err = float(spectral_error(SEED + 1, A, dec.B, dec.P))
+        bound = error_bound(m, n, k) * expected_sigma_kp1(m, n)
+        return {"J_distinct": int(torch.unique(J).numel()) == k,
+                "J_in_range": bool(((J >= 0) & (J < n)).all()),
+                "P_J_identity": bool(torch.equal(dec.P[:, J], eye)),
+                "finite": bool(torch.isfinite(dec.P).all()),
+                "spectral_error": err, "eq3_bound": bound,
+                "error_over_bound": err / bound}
+
+    def check_id(res: dict, what: str) -> None:
+        check(res["J_distinct"] and res["J_in_range"] and res["P_J_identity"]
+              and res["finite"], f"{what}: J or P malformed")
+        check(res["error_over_bound"] <= 1, f"{what}: eq.(3) violated")
+
+    def profiled(fn) -> dict:
+        """One call of ``fn`` under ``torch.profiler``: wall, device busy
+        time, device idle share and the top kernels by device time.  Only
+        device events count: an operator's row repeats its kernels' time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        check(busy_ms > 0, "trace: no device time recorded")
+        return {"traced_wall_s": wall, "device_busy_ms": busy_ms,
+                "device_idle_share": 1 - busy_ms / (1e3 * wall),
+                "top_kernels": [{"name": key[:80], "ms": ms, "count": cnt}
+                                for key, ms, cnt in rows[:12]]}
+
+    def run_distributed_phases(g):
+        """Phases 5-7 on the one-rank group ``g``; returns the launch
+        counts of the distributed run (phase 5) and of the gram run
+        (phase 6)."""
+        k, m, n, l = MAIN_K, MAIN_M, MAIN_N, 2 * MAIN_K
+        n_panels = math.ceil(k / PANEL)
+        A = lowrank(m, n, k, torch.float64)
+        J_single = rid(SEED, A, k, sketch_kind="gaussian").J
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        dec = rid_distributed(SEED, A, k, group=g, sketch_kind="gaussian",
+                              qr_impl="panel_parallel")
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        dec2 = rid_distributed(SEED, A, k, group=g, sketch_kind="gaussian",
+                               qr_impl="panel_parallel")
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        same = bool(torch.equal(dec.J, dec2.J) and torch.equal(dec.P, dec2.P))
+        overlap = len(set(dec.J.tolist()) & set(J_single.tolist())) / k
+        res = eq3_report(A, dec, k)
+        trace = profiled(lambda: rid_distributed(
+            SEED, A, k, group=g, sketch_kind="gaussian",
+            qr_impl="panel_parallel"))
+        emit({"phase": "distributed",
+              "call": "rid_distributed(seed, A_loc, 400, group=g, "
+                      "sketch_kind='gaussian', qr_impl='panel_parallel')",
+              "backend": dist.get_backend(g), "world": dist.get_world_size(g),
+              "m": m, "n": n, "k": k, "l": l, "dtype": "float64",
+              "launches": counts, "wall_first_s": first, "wall_warm_s": warm,
+              "max_memory_allocated": peak, "repeat_same_bits": same,
+              "pivot_overlap_with_rid": overlap, **res, "trace": trace})
+        check(counts["panel_coeff"] == n_panels
+              and counts["panel_apply"] == n_panels,
+              f"distributed: panel_coeff/panel_apply launched "
+              f"{counts['panel_coeff']}/{counts['panel_apply']} times, "
+              f"expected {n_panels}")
+        check(counts["panel_apply(emit_norms)"] == 1,
+              "distributed: expected one norm-recompute panel")
+        check(counts["panel_step"] == 0 and counts["sketch_accum"] == 1,
+              f"distributed: unexpected launches {counts}")
+        check(same, "distributed: a repeated call gave other bits")
+        check_id(res, "distributed")
+        del dec, dec2, J_single
+
+        # ---------------------- 6. gram oracle against the fused path
+        Y = sketch(SEED, A, l, kind="gaussian").Y
+        del A
+        torch.cuda.empty_cache()
+        fused = panel_parallel_pivoted_qr(Y, k, group=g)
+        reset_counts()
+        gram = panel_parallel_pivoted_qr(Y, k, group=g, panel_impl="gram")
+        torch.cuda.synchronize()
+        gcounts = read_counts()
+        same_piv = bool(torch.equal(gram.piv, fused.piv))
+        scale = float(Y.abs().max())
+        out = {"phase": "gram",
+               "call": "panel_parallel_pivoted_qr(Y, 400, group=g, "
+                       "panel_impl='gram')",
+               "l": l, "n": n, "k": k, "launches": gcounts,
+               "pivots_equal": same_piv,
+               "pivot_set_overlap": len(set(gram.piv.tolist())
+                                        & set(fused.piv.tolist())) / k,
+               "orth_err_gram": panel_orth(gram.Q),
+               "orth_err_fused": panel_orth(fused.Q)}
+        if same_piv:
+            out["Q_max_abs_diff"] = float((gram.Q - fused.Q).abs().max())
+            out["R_max_abs_diff_rel"] = float(
+                (gram.R - fused.R).abs().max()) / scale
+        for name, qr in (("gram", gram), ("fused", fused)):
+            R1 = torch.triu(qr.R.index_select(1, qr.piv))
+            out[f"recon_err_rel_{name}"] = float(torch.linalg.norm(
+                Y.index_select(1, qr.piv) - qr.Q @ R1)) / float(
+                torch.linalg.norm(Y))
+        emit(out)
+        check(gcounts["panel_gram"] == n_panels,
+              f"gram: panel_gram launched {gcounts['panel_gram']} times, "
+              f"expected {n_panels}")
+        check(out["orth_err_gram"] < 1e-8 and out["orth_err_fused"] < 1e-8
+              and out["recon_err_rel_gram"] < 1e-8
+              and out["recon_err_rel_fused"] < 1e-8,
+              f"gram: Q not orthonormal or pivot columns not reproduced: "
+              f"{out}")
+        del Y, fused, gram
+        torch.cuda.empty_cache()
+
+        # ------------------------------ 7. c128 distributed, k=100
+        k, m, n = DEFAULT_K, DEFAULT_M, DEFAULT_N
+        A = lowrank(m, n, k, torch.complex128)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dec = rid_distributed(SEED, A, k, group=g, qr_impl="panel_parallel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ccounts = read_counts()
+        res = eq3_report(A, dec, k)
+        emit({"phase": "c128",
+              "call": "rid_distributed(seed, A_loc, 100, group=g, "
+                      "qr_impl='panel_parallel')",
+              "m": m, "n": n, "k": k, "dtype": "complex128",
+              "launches": ccounts, "wall_s": wall, **res})
+        check(ccounts["panel_coeff"] == math.ceil(k / PANEL)
+              and ccounts["panel_apply"] == math.ceil(k / PANEL),
+              f"c128: unexpected launches {ccounts}")
+        check_id(res, "c128")
+        del A, dec
+        torch.cuda.empty_cache()
+        return counts, gcounts
+
     def run_rid(m, n, k, dtype, **kw):
         A = lowrank(m, n, k, dtype)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ACCUM_LAUNCHES.reset()
-        PANEL_LAUNCHES.reset()
+        reset_counts()
         t0 = time.perf_counter()
         dec = rid(SEED, A, k, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"sketch_accum": ACCUM_LAUNCHES.count,
-                  "panel_step": PANEL_LAUNCHES.count}
+        counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        J = dec.J
-        distinct = int(torch.unique(J).numel()) == k
-        in_range = bool(((J >= 0) & (J < n)).all())
-        eye = torch.eye(k, dtype=dec.P.dtype, device=dev)
-        identity = bool(torch.equal(dec.P[:, J], eye))
-        err = float(spectral_error(SEED + 1, A, dec.B, dec.P))
-        bound = error_bound(m, n, k) * expected_sigma_kp1(m, n)
         out = {"m": m, "n": n, "k": k, "l": 2 * k, "dtype": dname(dtype),
                "launches": counts, "wall_s": wall,
-               "max_memory_allocated": peak, "J_distinct": distinct,
-               "J_in_range": in_range, "P_J_identity": identity,
-               "spectral_error": err, "eq3_bound": bound,
-               "error_over_bound": err / bound,
-               "finite": bool(torch.isfinite(dec.P).all())}
+               "max_memory_allocated": peak, **eq3_report(A, dec, k)}
         del A, dec
         torch.cuda.empty_cache()
         return out
@@ -277,9 +509,7 @@ def main() -> int:
     check(res["launches"]["panel_step"] == n_panels,
           f"main: panel_step launched {res['launches']['panel_step']} "
           f"times, expected {n_panels}")
-    check(res["J_distinct"] and res["J_in_range"] and res["P_J_identity"]
-          and res["finite"], "main: J or P malformed")
-    check(res["spectral_error"] <= res["eq3_bound"], "main: eq.(3) violated")
+    check_id(res, "main")
     main_launches = res["launches"]
 
     # ----------------------------------------- 4. default path, c128 srft
@@ -289,63 +519,105 @@ def main() -> int:
     check(res["launches"]["panel_step"] == n_panels,
           f"default: panel_step launched {res['launches']['panel_step']} "
           f"times, expected {n_panels}")
-    check(res["J_distinct"] and res["J_in_range"] and res["P_J_identity"]
-          and res["finite"], "default: J or P malformed")
-    check(res["spectral_error"] <= res["eq3_bound"],
-          "default: eq.(3) violated")
+    check_id(res, "default")
 
-    # ------------------------------------ 5. times at the main path shapes
+    # ------------- 5. distributed path on a one-rank NCCL group, f64 main
+    store = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        dist_launches, gram_launches = run_distributed_phases(
+            dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+
+    # ------------------------------------ 8. times at the main path shapes
     dtype, esize = torch.float64, 8
     l, m, n, b = 2 * MAIN_K, MAIN_M, MAIN_N, PANEL
+
+    def timed(name, source, replaces, launches, err, fn, plain, library,
+              flops, nbytes, shape, reps=20, plain_reps=5, **extra):
+        """The kernels-line entry of one kernel, timed at ``shape``, with
+        its bound from ``flops`` and ``nbytes``; also emitted as a phase
+        line with ``extra``."""
+        t_flop, t_byte = flops / PEAK_F64_FLOPS, nbytes / HBM_BYTES_PER_S
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": cuda_ms(fn, reps),
+               "plain_ms": cuda_ms(plain, plain_reps),
+               "bound_ms": 1e3 * max(t_flop, t_byte),
+               "bound_by": "operations" if t_flop >= t_byte else "bytes",
+               "library_ms": cuda_ms(library, reps) if library else None}
+        emit({"phase": "times", "kernel": name, "dtype": "float64", **shape,
+              "flops": flops, "bytes": nbytes, "peak": PEAK_NAME, **extra,
+              **{key: row[key] for key in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}})
+        return row
+
     x, a = randn((l, m), dtype), randn((m, n), dtype)
     acc = torch.zeros((l, n), dtype=dtype, device=dev)
-    flops = 2.0 * l * m * n
-    nbytes = esize * (l * m + m * n + 2 * l * n)
-    t_flop, t_byte = flops / PEAK_F64_FLOPS, nbytes / HBM_BYTES_PER_S
-    accum = {"name": "sketch_accum", "route": "cuda",
-             "source": "src/repro_torch/csrc/sketch_accum.cu",
-             "replaces": "src/repro/kernels/sketch_accum/kernel.py:52",
-             "launches": main_launches["sketch_accum"],
-             "max_abs_err": accum_err_f64,
-             "ms": cuda_ms(lambda: sketch_accum(x, a, acc), 3),
-             "plain_ms": cuda_ms(lambda: sketch_accum_ref(x, a, acc), 3),
-             "bound_ms": 1e3 * max(t_flop, t_byte),
-             "bound_by": "operations" if t_flop >= t_byte else "bytes",
-             "library_ms": cuda_ms(lambda: torch.addmm(acc, x, a), 3)}
-    emit({"phase": "times", "kernel": "sketch_accum", "dtype": "float64",
-          "l": l, "m": m, "n": n, "flops": flops, "bytes": nbytes,
-          "peak": PEAK_NAME, "ms": accum["ms"],
-          "plain_ms": accum["plain_ms"], "library_ms": accum["library_ms"],
-          "bound_ms": accum["bound_ms"], "bound_by": accum["bound_by"]})
+    accum = timed(
+        "sketch_accum", "src/repro_torch/csrc/sketch_accum.cu",
+        "src/repro/kernels/sketch_accum/kernel.py:52",
+        main_launches["sketch_accum"], accum_err_f64,
+        lambda: sketch_accum(x, a, acc), lambda: sketch_accum_ref(x, a, acc),
+        lambda: torch.addmm(acc, x, a), 2.0 * l * m * n,
+        esize * (l * m + m * n + 2 * l * n), {"l": l, "m": m, "n": n},
+        reps=3, plain_reps=3)
     del x, a, acc
     torch.cuda.empty_cache()
 
     c, z = randn((l, b), dtype), randn((l, n), dtype)
     # factor: 2 rounds of Gram (2 l b^2), Cholesky (b^3 / 3), solve (l b^2);
-    # sweep: W and O (2 l b n each), norms (2 l n)
-    flops = 2 * (3.0 * l * b * b + b ** 3 / 3) + 4.0 * l * b * n + 2.0 * l * n
-    nbytes = esize * (2 * l * b + 2 * l * n) + esize * n
-    t_flop, t_byte = flops / PEAK_F64_FLOPS, nbytes / HBM_BYTES_PER_S
-    pstep = {"name": "panel_step", "route": "cuda",
-             "source": "src/repro_torch/csrc/panel_step.cu",
-             "replaces": "src/repro/kernels/panel_step/kernel.py:147",
-             "launches": main_launches["panel_step"],
-             "max_abs_err": panel_err_f64,
-             "ms": cuda_ms(lambda: panel_step(c, z, emit_w=False), 20),
-             "plain_ms": cuda_ms(lambda: panel_step_ref(c, z), 5),
-             "bound_ms": 1e3 * max(t_flop, t_byte),
-             "bound_by": "operations" if t_flop >= t_byte else "bytes",
-             "library_ms": None}
-    emit({"phase": "times", "kernel": "panel_step", "dtype": "float64",
-          "l": l, "b": b, "n": n, "flops": flops, "bytes": nbytes,
-          "peak": PEAK_NAME, "ms": pstep["ms"],
-          "plain_ms": pstep["plain_ms"], "library_ms": None,
-          "bound_ms": pstep["bound_ms"], "bound_by": pstep["bound_by"]})
-
-    del c, z
+    # sweep: W and O (2 l b n each), norms (2 l n).  Bytes: C, Z in; Q_p,
+    # O, r2 out.
+    factor_flops = 2 * (3.0 * l * b * b + b ** 3 / 3)
+    shape = {"l": l, "b": b, "n": n}
+    pstep = timed(
+        "panel_step", "src/repro_torch/csrc/panel_step.cu",
+        "src/repro/kernels/panel_step/kernel.py:147",
+        main_launches["panel_step"], panel_err_f64,
+        lambda: panel_step(c, z, emit_w=False), lambda: panel_step_ref(c, z),
+        None, factor_flops + 4.0 * l * b * n + 2.0 * l * n,
+        esize * (2 * l * b + 2 * l * n + n), shape)
+    r2in = colnorms2(z)
+    # factor as in panel_step; W (2 l b n) and its norms (2 b n).  Bytes:
+    # c, z, r2 in; Q_p, W, r2 out.
+    coeff = timed(
+        "panel_coeff", "src/repro_torch/csrc/panel_step.cu",
+        "src/repro/kernels/panel_step/kernel.py:202",
+        dist_launches["panel_coeff"], split_err_f64["panel_coeff"],
+        lambda: panel_coeff(c, z, r2in), lambda: panel_coeff_ref(c, z, r2in),
+        None, factor_flops + 2.0 * l * b * n + 2.0 * b * n,
+        esize * (2 * l * b + l * n + b * n + 2 * n), shape)
+    qp, w, _ = panel_coeff(c, z, r2in)
+    # O = Z - Q_p W (2 l b n); bytes: Q_p, W, Z in, O out.
+    apply_flops, apply_bytes = 2.0 * l * b * n, esize * (l * b + b * n + 2 * l * n)
+    apply_norms_ms = cuda_ms(lambda: panel_apply(qp, w, z, emit_norms=True), 20)
+    apply = timed(
+        "panel_apply", "src/repro_torch/csrc/panel_step.cu",
+        "src/repro/kernels/panel_step/kernel.py:257",
+        dist_launches["panel_apply"], split_err_f64["panel_apply"],
+        lambda: panel_apply(qp, w, z), lambda: panel_apply_ref(qp, w, z),
+        lambda: torch.addmm(z, qp, w, alpha=-1), apply_flops, apply_bytes,
+        shape, emit_norms_ms=apply_norms_ms,
+        emit_norms_bound_ms=1e3 * (apply_bytes + esize * n) / HBM_BYTES_PER_S,
+        launches_emit_norms=dist_launches["panel_apply(emit_norms)"])
+    # G (2 l b^2) and V (2 l b n); bytes: C, Z in, G, V out.
+    gram = timed(
+        "panel_gram", "src/repro_torch/csrc/panel_gram.cu",
+        "src/repro/kernels/panel_gram/kernel.py:43",
+        gram_launches["panel_gram"], split_err_f64["panel_gram"],
+        lambda: panel_gram(c, z), lambda: panel_gram_ref(c, z),
+        lambda: c.mH @ torch.cat([c, z], 1), 2.0 * l * b * n + 2.0 * l * b * b,
+        esize * (l * b + l * n + b * b + b * n), shape)
+    del c, z, qp, w, r2in
     torch.cuda.empty_cache()
 
-    # ------------------- 6. where the main path's time goes (one more run)
+    # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -355,28 +627,13 @@ def main() -> int:
     rid_from_sketch(A, Y, MAIN_K)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t3 = time.perf_counter()
-        rid(SEED, A, MAIN_K, sketch_kind="gaussian")
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
+    trace = profiled(lambda: rid(SEED, A, MAIN_K, sketch_kind="gaussian"))
     emit({"phase": "trace", "call": "rid(seed, A, 400, sketch_kind='gaussian')",
-          "sketch_s": t1 - t0, "qr_interp_gather_s": t2 - t1,
-          "traced_wall_s": t4 - t3, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / (1e3 * (t4 - t3)),
-          "top_kernels": [{"name": k[:80], "ms": ms, "count": n}
-                          for k, ms, n in rows[:12]]})
-    check(busy_ms > 0, "trace: no device time recorded")
+          "sketch_s": t1 - t0, "qr_interp_gather_s": t2 - t1, **trace})
     del A, Y
     torch.cuda.empty_cache()
 
-    emit({"kernels": [accum, pstep]})
+    emit({"kernels": [accum, pstep, coeff, apply, gram]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 ``ValueError`` naming the argument and the value received."""
 from __future__ import annotations
 
-__all__ = ["check_rank_bounds", "check_l_ge_k", "check_panel"]
+__all__ = ["check_rank_bounds", "check_l_ge_k", "check_panel",
+           "check_divides"]
 
 
 def check_rank_bounds(k: int, l: int, n: int, *, ctx: str = "") -> None:
@@ -23,3 +24,11 @@ def check_panel(panel: int, *, name: str = "panel", ctx: str = "") -> None:
     """Require a positive panel width (``name`` spells the caller's kwarg)."""
     if panel < 1:
         raise ValueError(f"{ctx}need {name} >= 1, got {name}={panel}")
+
+
+def check_divides(n: int, ndev: int, axis: str, *, ctx: str = "") -> None:
+    """Require the column count to shard evenly over ``ndev`` ranks
+    (``axis`` names the process group in the message)."""
+    if n % ndev:
+        raise ValueError(f"{ctx}n={n} must divide the '{axis}' axis "
+                         f"({ndev} devices)")

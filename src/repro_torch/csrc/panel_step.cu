@@ -1,23 +1,34 @@
-// Fused panel step of the blocked pivoted QR, for Hopper.
+// Panel kernels of the pivoted QR engines, for Hopper.
 //
-// Replaces the TPU kernel panel_step_kernel
-// (repro/kernels/panel_step/kernel.py).  There, grid step 0 factors the
-// candidate panel C (l x b) with CholeskyQR2 and keeps Q_p in VMEM through
-// a constant index map; every step then sweeps one slab of the residual Z
-// (l x n): W = Q_p^H Z, O = Z - Q_p W, colnorms^2(O).
+// Replaces three TPU kernels of repro/kernels/panel_step/kernel.py:
+//   panel_step_kernel   -- factor the candidate panel C (l x b) with
+//                          CholeskyQR2 and sweep the residual Z (l x n):
+//                          W = Q_p^H Z, O = Z - Q_p W, colnorms^2(O);
+//   panel_coeff_kernel  -- the factor, W and the downdated norms
+//                          max(r2 - colnorms^2(W), 0), no O (stage A of the
+//                          distributed panel);
+//   panel_apply_kernel  -- O = Z - Q_p W with W given, and colnorms^2(O)
+//                          when asked (stage B, and the norm-recompute panel).
+// On the TPU, grid step 0 factors the panel and keeps Q_p in VMEM through a
+// constant index map for every later slab.
 //
 // Hopper blocks share nothing, and at the main path Q_p alone (800 x 32
-// f64, 205 KB) nearly fills one block's shared memory, so the port splits
-// the call in two launches on one stream:
+// f64, 205 KB) nearly fills one block's shared memory, so the factor is a
+// launch of its own and Q_p goes through global memory:
 //   (a) panel_factor_kernel, one CTA: G = C^H C, the clamped Cholesky,
 //       X = C L^{-H} by forward substitution over columns; twice (round 2
-//       factors the computed Q1, Yamamoto's correction).  Q_p goes to
-//       global memory.
-//   (b) panel_sweep_kernel, one CTA per 32-column slab of Z: walks l in
-//       32-row chunks to form W in registers, then walks l again (Z re-read,
-//       from L2 where it still holds) for O = Z - Q_p W and the column norms,
-//       taken from the unrounded O before the store.  W is stored only when
-//       the caller asks for it.
+//       factors the computed Q1, Yamamoto's correction).
+//   (b) panel_sweep_kernel<T, kComputeW, kEmitO>, one CTA per 32-column
+//       slab of Z.  Pass 1 walks l in 32-row chunks to form W in registers
+//       (kComputeW), or W is read from global memory (panel_apply).  Pass 2
+//       (kEmitO) walks l again (Z re-read, from L2 where it still holds) for
+//       O = Z - Q_p W and the column norms, taken from the unrounded O
+//       before the store.  Without pass 2 (panel_coeff) the norms are the
+//       downdate max(r2 - colnorms^2(W), 0) from the unrounded W.
+//   panel_step = (a) + (b)<T, true, true>; panel_coeff = (a) +
+//   (b)<T, true, false>; panel_apply = (b)<T, false, true>.
+// Every sum runs in a fixed order (no atomics, no split reductions), so the
+// same inputs give the same bits, on every rank of a distributed run.
 //
 // Dead pivots (as repro_torch/kernels/panel_step/ref.py): a live pivot
 // gives L[:, j] = G[:, j] / sqrt(diag), so L[j, j] = diag / sqrt(diag), as
@@ -27,32 +38,17 @@
 // yields a finite Q_p with a zero column, which fails the caller's
 // orthogonality check, never a NaN.
 //
-// Bound: at the main path (f64, l=800, b=32, n=2^14) one call moves about
-// 210 MB (Z in, O out) for about 1.7 GFLOP, so the sweep is bound by bytes.
-#include "common.cuh"
+// Bounds at the main path (f64, l=800, b=32, n=2^14), all by bytes:
+// panel_step moves about 210 MB (Z in, O out) for 1.7 GFLOP; panel_coeff
+// 110 MB (Z in, W out) for 0.85 GFLOP; panel_apply 214 MB (Z and W in, O
+// out) for 0.84 GFLOP.
+#include "panel_common.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kMaxPanel = 64;      // widest panel (MAX_PANEL in kernel.py)
 constexpr int kFactorThreads = 512;
-constexpr int kSweepCols = 32;     // columns of Z per CTA: one per lane
-constexpr int kSweepWarps = 8;
-constexpr int kSweepRows = 32;     // rows of l per shared-memory chunk
-
-// G = src^H src for src (l x b) in global memory; G (b x b) in shared.
-// src is not __restrict__: in round 2 it is Q1, written earlier in this
-// kernel, so it must not be read through the non-coherent load path.
-template <class T>
-__device__ void gram(const T* src, T* G, int64_t l, int b) {
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
-    const int i = e / b, j = e % b;
-    T s{};
-    for (int64_t r = 0; r < l; ++r) s = madd(conj_of(src[r * b + i]), src[r * b + j], s);
-    G[e] = s;
-  }
-}
 
 // In place: G (b x b, shared) -> lower L with G ~= L L^H, by b right-looking
 // rank-1 steps; dead pivots give a zero column.  lj and g0 are b elements of
@@ -124,13 +120,18 @@ panel_factor_kernel(const T* __restrict__ c, T* qp, int64_t l, int b) {
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kSweepCols * kSweepWarps)
+// One CTA per kSweepCols columns of Z (see the file comment for the flags).
+// w_out (nullable) receives W when kComputeW; w_in is read when not.
+// r2 (nullable when kEmitO) receives colnorms^2(O) when kEmitO, else the
+// downdate max(r2_in - colnorms^2(W), 0).
+template <class T, bool kComputeW, bool kEmitO>
+__global__ void __launch_bounds__(kSweepThreads)
 panel_sweep_kernel(const T* __restrict__ qp, const T* __restrict__ z,
+                   const T* __restrict__ w_in, const real_t<T>* __restrict__ r2_in,
                    T* __restrict__ o, T* __restrict__ w_out,
                    real_t<T>* __restrict__ r2, int64_t l, int b, int64_t n) {
+  static_assert(kComputeW || kEmitO, "a sweep emits W or O");
   using R = real_t<T>;
-  constexpr int kPerWarp = kMaxPanel / kSweepWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // kSweepRows x b
   T* zs = qs + kSweepRows * b;             // kSweepRows x kSweepCols
@@ -142,63 +143,57 @@ panel_sweep_kernel(const T* __restrict__ qp, const T* __restrict__ z,
   const int64_t col = c0 + lane;
   const bool live = col < n;
 
-  // Pass 1: W[p, lane] for p = warp + kSweepWarps * q, summed over l in order.
-  T wacc[kPerWarp];
+  R racc = R(0);
+  if constexpr (kComputeW) {
+    T wacc[kPerWarp];
+    coeff_pass(qp, z, l, b, n, c0, qs, zs, wacc);
 #pragma unroll
-  for (int q = 0; q < kPerWarp; ++q) wacc[q] = T{};
-  for (int64_t r0 = 0; r0 < l; r0 += kSweepRows) {
-    const int rows = static_cast<int>((l - r0 < kSweepRows) ? l - r0 : kSweepRows);
-    for (int e = threadIdx.x; e < rows * b; e += blockDim.x)
-      qs[e] = qp[r0 * b + e];
-    for (int e = threadIdx.x; e < rows * kSweepCols; e += blockDim.x) {
-      const int rr = e / kSweepCols, cc = e % kSweepCols;
-      zs[e] = (c0 + cc < n) ? z[(r0 + rr) * n + c0 + cc] : T{};
-    }
-    __syncthreads();
-    for (int rr = 0; rr < rows; ++rr) {
-      const T zv = zs[rr * kSweepCols + lane];
-#pragma unroll
-      for (int q = 0; q < kPerWarp; ++q) {
-        const int p = warp + kSweepWarps * q;
-        if (p < b) wacc[q] = madd(conj_of(qs[rr * b + p]), zv, wacc[q]);
+    for (int q = 0; q < kPerWarp; ++q) {
+      const int p = warp + kSweepWarps * q;
+      if (p < b) {
+        ws[p * kSweepCols + lane] = wacc[q];
+        if (w_out != nullptr && live) w_out[p * n + col] = wacc[q];
+        if constexpr (!kEmitO) racc = abs2_add(wacc[q], racc);
       }
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < kPerWarp; ++q) {
-    const int p = warp + kSweepWarps * q;
-    if (p < b) {
-      ws[p * kSweepCols + lane] = wacc[q];
-      if (w_out != nullptr && live) w_out[p * n + col] = wacc[q];
+  } else {
+    for (int e = threadIdx.x; e < b * kSweepCols; e += blockDim.x) {
+      const int p = e / kSweepCols, cc = e % kSweepCols;
+      ws[e] = (c0 + cc < n) ? w_in[p * n + c0 + cc] : T{};
     }
   }
   __syncthreads();
 
-  // Pass 2: O = Z - Q_p W, one row per warp at a time; norms from O.
-  R racc = R(0);
-  for (int64_t r0 = 0; r0 < l; r0 += kSweepRows) {
-    const int rows = static_cast<int>((l - r0 < kSweepRows) ? l - r0 : kSweepRows);
-    for (int e = threadIdx.x; e < rows * b; e += blockDim.x)
-      qs[e] = qp[r0 * b + e];
-    __syncthreads();
-    for (int rr = warp; rr < rows; rr += kSweepWarps) {
-      T s{};
-      for (int p = 0; p < b; ++p) s = madd(qs[rr * b + p], ws[p * kSweepCols + lane], s);
-      if (live) {
-        const int64_t idx = (r0 + rr) * n + col;
-        const T ov = z[idx] - s;
-        o[idx] = ov;
-        racc = abs2_add(ov, racc);
+  if constexpr (kEmitO) {
+    // Pass 2: O = Z - Q_p W, one row per warp at a time; norms from O.
+    for (int64_t r0 = 0; r0 < l; r0 += kSweepRows) {
+      const int rows = static_cast<int>((l - r0 < kSweepRows) ? l - r0 : kSweepRows);
+      for (int e = threadIdx.x; e < rows * b; e += blockDim.x)
+        qs[e] = qp[r0 * b + e];
+      __syncthreads();
+      for (int rr = warp; rr < rows; rr += kSweepWarps) {
+        T s{};
+        for (int p = 0; p < b; ++p) s = madd(qs[rr * b + p], ws[p * kSweepCols + lane], s);
+        if (live) {
+          const int64_t idx = (r0 + rr) * n + col;
+          const T ov = z[idx] - s;
+          o[idx] = ov;
+          racc = abs2_add(ov, racc);
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
+  if (r2 == nullptr) return;
   rs[warp * kSweepCols + lane] = racc;
   __syncthreads();
   if (warp == 0 && live) {
     R t = rs[lane];
     for (int q = 1; q < kSweepWarps; ++q) t = t + rs[q * kSweepCols + lane];
+    if constexpr (!kEmitO) {
+      t = r2_in[col] - t;
+      t = t < R(0) ? R(0) : t;  // max(., 0) that keeps a NaN
+    }
     r2[col] = t;
   }
 }
@@ -225,24 +220,50 @@ void launch_factor(const void* c, void* qp, int64_t l, int b, cudaStream_t strea
       static_cast<const T*>(c), static_cast<T*>(qp), l, b);
 }
 
-template <class T>
-void launch_sweep(const void* qp, const void* z, void* o, void* w, void* r2,
-                  int64_t l, int b, int64_t n, cudaStream_t stream) {
+template <class T, bool kComputeW, bool kEmitO>
+void launch_sweep(const void* qp, const void* z, const void* w_in, const void* r2_in,
+                  void* o, void* w_out, void* r2, int64_t l, int b, int64_t n,
+                  cudaStream_t stream) {
+  using R = real_t<T>;
   const size_t smem = sweep_smem<T>(b);
-  cudaFuncSetAttribute(panel_sweep_kernel<T>,
+  cudaFuncSetAttribute(panel_sweep_kernel<T, kComputeW, kEmitO>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const unsigned grid = static_cast<unsigned>((n + kSweepCols - 1) / kSweepCols);
-  panel_sweep_kernel<T><<<grid, kSweepCols * kSweepWarps, smem, stream>>>(
-      static_cast<const T*>(qp), static_cast<const T*>(z), static_cast<T*>(o),
-      static_cast<T*>(w), static_cast<real_t<T>*>(r2), l, b, n);
+  panel_sweep_kernel<T, kComputeW, kEmitO><<<grid, kSweepThreads, smem, stream>>>(
+      static_cast<const T*>(qp), static_cast<const T*>(z),
+      static_cast<const T*>(w_in), static_cast<const R*>(r2_in),
+      static_cast<T*>(o), static_cast<T*>(w_out), static_cast<R*>(r2), l, b, n);
+}
+
+// The three sweeps behind the C entry points.
+template <class T>
+void launch_step_sweep(const void* qp, const void* z, void* o, void* w, void* r2,
+                       int64_t l, int b, int64_t n, cudaStream_t s) {
+  launch_sweep<T, true, true>(qp, z, nullptr, nullptr, o, w, r2, l, b, n, s);
+}
+
+template <class T>
+void launch_coeff_sweep(const void* qp, const void* z, const void* r2_in, void* w,
+                        void* r2, int64_t l, int b, int64_t n, cudaStream_t s) {
+  launch_sweep<T, true, false>(qp, z, nullptr, r2_in, nullptr, w, r2, l, b, n, s);
+}
+
+template <class T>
+void launch_apply(const void* qp, const void* w, const void* z, void* o, void* r2,
+                  int64_t l, int b, int64_t n, cudaStream_t s) {
+  launch_sweep<T, false, true>(qp, z, w, nullptr, o, nullptr, r2, l, b, n, s);
+}
+
+bool bad_sizes(int64_t l, int64_t b, int64_t n) {
+  return l < 0 || n < 1 || b < 1 || b > kMaxPanel;
 }
 
 }  // namespace
 
 extern "C" int repro_panel_factor(int dtype, const void* c, void* qp,
                                   int64_t l, int64_t b, void* stream) {
-  if (l < 0 || b < 1 || b > kMaxPanel) return static_cast<int>(cudaErrorInvalidValue);
+  if (l < 0 || b < 1 || b > repro::kMaxPanel) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_factor, c, qp, l, static_cast<int>(b), s);
   return static_cast<int>(cudaGetLastError());
@@ -251,9 +272,28 @@ extern "C" int repro_panel_factor(int dtype, const void* c, void* qp,
 extern "C" int repro_panel_sweep(int dtype, const void* qp, const void* z,
                                  void* o, void* w, void* r2, int64_t l,
                                  int64_t b, int64_t n, void* stream) {
-  if (l < 0 || n < 1 || b < 1 || b > kMaxPanel)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH(dtype, launch_sweep, qp, z, o, w, r2, l, static_cast<int>(b), n, s);
+  REPRO_DISPATCH(dtype, launch_step_sweep, qp, z, o, w, r2, l, static_cast<int>(b), n, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_panel_coeff_sweep(int dtype, const void* qp, const void* z,
+                                       const void* r2_in, void* w, void* r2,
+                                       int64_t l, int64_t b, int64_t n,
+                                       void* stream) {
+  if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH(dtype, launch_coeff_sweep, qp, z, r2_in, w, r2, l, static_cast<int>(b),
+                 n, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_panel_apply(int dtype, const void* qp, const void* w,
+                                 const void* z, void* o, void* r2, int64_t l,
+                                 int64_t b, int64_t n, void* stream) {
+  if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH(dtype, launch_apply, qp, w, z, o, r2, l, static_cast<int>(b), n, s);
   return static_cast<int>(cudaGetLastError());
 }

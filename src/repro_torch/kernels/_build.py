@@ -43,6 +43,12 @@ _SIGNATURES = {
     "repro_panel_factor": [_I, _P, _P, _I64, _I64, _P],
     # dtype, qp, z, o, w (nullable), r2, l, b, n, stream
     "repro_panel_sweep": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, qp, z, r2_in, w, r2, l, b, n, stream
+    "repro_panel_coeff_sweep": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, qp, w, z, o, r2 (nullable), l, b, n, stream
+    "repro_panel_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, c, z, g, v, l, b, n, stream
+    "repro_panel_gram": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()
@@ -80,9 +86,15 @@ _TYPE_CODES = {"f": "float32", "d": "float64",
 
 
 def _short_name(mangled: str) -> str:
-    """``panel_sweep_kernel<float64>`` from the mangled entry name."""
-    m = re.search(r"\d([a-z_]+_kernel)I(f|d|N5repro4cplxI[fd]EE)E", mangled)
-    return f"{m.group(1)}<{_TYPE_CODES[m.group(2)]}>" if m else mangled
+    """``panel_sweep_kernel<float64,true,false>`` from the mangled entry
+    name (element type, then any bool template flags)."""
+    m = re.search(r"\d([a-z_]+_kernel)I(f|d|N5repro4cplxI[fd]EE)((?:Lb[01]E)*)E",
+                  mangled)
+    if not m:
+        return mangled
+    flags = ["true" if f == "1" else "false"
+             for f in re.findall(r"Lb([01])E", m.group(3))]
+    return f"{m.group(1)}<{','.join([_TYPE_CODES[m.group(2)], *flags])}>"
 
 
 def parse_ptxas(log: str) -> list[dict]:

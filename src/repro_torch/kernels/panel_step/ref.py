@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the fused panel step (real and complex).
+"""Plain PyTorch versions of the panel kernels (real and complex): the
+fused panel step and its two halves for the distributed engine,
+``panel_coeff`` (factor, W, downdated norms) and ``panel_apply`` (the
+deflation, with or without its column norms).
 
 It follows the TPU kernel (``repro/kernels/panel_step/kernel.py``), not
 the JAX ``ref.py``: CholeskyQR2 with the Yamamoto correction (round 2
@@ -24,7 +27,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["chol_clamped", "solve_right_lh", "factor_cholqr2",
-           "panel_step_ref"]
+           "colnorms2", "panel_step_ref", "panel_coeff_ref",
+           "panel_apply_ref", "panel_apply_norms_ref"]
 
 
 def chol_clamped(G: torch.Tensor) -> torch.Tensor:
@@ -70,12 +74,40 @@ def factor_cholqr2(c: torch.Tensor) -> torch.Tensor:
     return solve_right_lh(Q1, L2)
 
 
+def colnorms2(x: torch.Tensor) -> torch.Tensor:
+    """Squared column norms, real."""
+    return (x.real.square() + x.imag.square() if x.is_complex()
+            else x.square()).sum(0)
+
+
 def panel_step_ref(c: torch.Tensor, z: torch.Tensor):
     """``(Q_p, Z - Q_p W, W, colnorms^2(Z - Q_p W))`` with
     ``Q_p = cholqr2(c)`` and ``W = Q_p^H z``; the norms are real."""
     qp = factor_cholqr2(c)
     w = qp.mH @ z
     o = z - qp @ w
-    r2 = (o.real.square() + o.imag.square() if o.is_complex()
-          else o.square()).sum(0)
-    return qp, o, w, r2
+    return qp, o, w, colnorms2(o)
+
+
+def panel_coeff_ref(c: torch.Tensor, z: torch.Tensor, r2: torch.Tensor):
+    """``(Q_p, W, max(r2 - colnorms^2(W), 0))``: the factor and coefficient
+    half of the panel (stage A of the distributed panel), with the residual
+    norms downdated instead of recomputed (exact for an orthonormal panel,
+    by Pythagoras); ``r2`` is real."""
+    qp = factor_cholqr2(c)
+    w = qp.mH @ z
+    return qp, w, torch.clamp(r2 - colnorms2(w), min=0)
+
+
+def panel_apply_ref(qp: torch.Tensor, w: torch.Tensor,
+                    z: torch.Tensor) -> torch.Tensor:
+    """``Z - Q_p W`` with ``W`` given (stage B)."""
+    return z - qp @ w
+
+
+def panel_apply_norms_ref(qp: torch.Tensor, w: torch.Tensor,
+                          z: torch.Tensor):
+    """``(Z - Q_p W, colnorms^2(Z - Q_p W))``: stage B on a norm-recompute
+    panel, the deflated slab and its exact column norms."""
+    o = z - qp @ w
+    return o, colnorms2(o)

@@ -16,12 +16,22 @@ import pytest
 import torch
 
 from repro_torch.core import error_bound, expected_sigma_kp1, rid, spectral_error
-from repro_torch.kernels.panel_step import panel_step
+from repro_torch.kernels.panel_gram import panel_gram
+from repro_torch.kernels.panel_gram.kernel import LAUNCHES as GRAM_LAUNCHES
+from repro_torch.kernels.panel_gram.ref import panel_gram_ref
+from repro_torch.kernels.panel_step import panel_apply, panel_coeff, panel_step
+from repro_torch.kernels.panel_step.kernel import (APPLY_LAUNCHES,
+                                                   APPLY_NORMS_LAUNCHES,
+                                                   COEFF_LAUNCHES)
 from repro_torch.kernels.panel_step.kernel import LAUNCHES as PANEL_LAUNCHES
-from repro_torch.kernels.panel_step.ref import panel_step_ref
+from repro_torch.kernels.panel_step.ref import (panel_apply_norms_ref,
+                                                panel_apply_ref,
+                                                panel_coeff_ref,
+                                                panel_step_ref)
 from repro_torch.kernels.sketch_accum import sketch_accum
 from repro_torch.kernels.sketch_accum.kernel import LAUNCHES as ACCUM_LAUNCHES
 from repro_torch.kernels.sketch_accum.ref import sketch_accum_ref
+from torch_ranks import failures, run_ranks
 
 DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
 # Relative to the largest entry of the plain output: the kernel and the
@@ -99,6 +109,83 @@ def test_cuda_panel_step_duplicate_columns_finite(dtype):
     assert orth > math.sqrt(eps)
 
 
+def _norms2(z):
+    return (z.abs() ** 2).sum(0).to(z.real.dtype if z.is_complex() else z.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [32, 16, 7, 64])
+def test_cuda_panel_coeff_matches_plain(dtype, b):
+    """Factor, W and the downdated norms (ragged n), against ref.py."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    l, n = 200, 301
+    c, z = _randn(gen, (l, b), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    r2 = _norms2(z)
+    r2[::7] = -1.0                              # picked columns' sentinel
+    before = COEFF_LAUNCHES.count
+    got = panel_coeff(c, z, r2)
+    assert COEFF_LAUNCHES.count == before + 1
+    for g, w in zip(got, panel_coeff_ref(c, z, r2)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel(g, w) <= REL_TOL[dtype]
+    assert bool((got[2][::7] == 0).all())
+    assert torch.equal(got[0], panel_step(c, z)[0])   # one factor launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("emit_norms", [False, True])
+def test_cuda_panel_apply_matches_plain(dtype, emit_norms):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for l, b, n in [(200, 32, 300), (64, 7, 33), (90, 64, 1)]:
+        qp, w, z = (_randn(gen, s, dtype, dev) for s in ((l, b), (b, n), (l, n)))
+        before, before_n = APPLY_LAUNCHES.count, APPLY_NORMS_LAUNCHES.count
+        got = panel_apply(qp, w, z, emit_norms=emit_norms)
+        assert APPLY_LAUNCHES.count == before + 1
+        assert APPLY_NORMS_LAUNCHES.count == before_n + int(emit_norms)
+        if emit_norms:
+            want = panel_apply_norms_ref(qp, w, z)
+            assert all(_rel(g, v) <= REL_TOL[dtype] for g, v in zip(got, want))
+            assert torch.equal(got[0], panel_apply(qp, w, z))
+        else:
+            assert _rel(got, panel_apply_ref(qp, w, z)) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [32, 16, 7, 64])
+def test_cuda_panel_gram_matches_plain(dtype, b):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l, n = 200, 301
+    c, z = _randn(gen, (l, b), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    before = GRAM_LAUNCHES.count
+    got = panel_gram(c, z)
+    assert GRAM_LAUNCHES.count == before + 1
+    for g, w in zip(got, panel_gram_ref(c, z)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel(g, w) <= REL_TOL[dtype]
+    g0, v0 = panel_gram(c, z[:, :0])            # n = 0: the Gram alone
+    assert v0.shape == (b, 0) and torch.equal(g0, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_panel_coeff_duplicate_columns_finite(dtype):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c8 = _randn(gen, (64, 8), dtype, dev)
+    z = _randn(gen, (64, 100), dtype, dev)
+    qp, w, r2 = panel_coeff(torch.cat([c8, c8], 1), z, _norms2(z))
+    assert all(bool(torch.isfinite(t).all()) for t in (qp, w, r2))
+    eps = torch.finfo(dtype.to_real() if dtype.is_complex else dtype).eps
+    orth = float((qp.mH @ qp - torch.eye(16, dtype=dtype, device=dev)).abs().max())
+    assert orth > math.sqrt(eps)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_other_dtypes():
     dev = _device()
@@ -128,3 +215,159 @@ def test_cuda_rid_end_to_end(sketch_kind, dtype):
     if dtype in (torch.float64, torch.complex128):
         err = float(spectral_error(6, A, dec.B, dec.P))
         assert err <= error_bound(m, n, k) * expected_sigma_kp1(m, n)
+
+
+# A one-rank process group runs in a subprocess (tests/torch_ranks.py), so
+# that this process never joins one.  argv: rank, world, work dir, backend.
+ONE_RANK_PROGRAM = r"""
+import datetime, math, sys
+import torch
+import torch.distributed as dist
+work, backend = sys.argv[3], sys.argv[4]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group(backend, init_method="file://" + work + "/store",
+                        rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+from repro_torch.core import (error_bound, expected_sigma_kp1,
+                              panel_parallel_pivoted_qr, rid_distributed,
+                              sketch, spectral_error)
+from repro_torch.kernels.panel_gram.kernel import LAUNCHES as GRAM
+from repro_torch.kernels.panel_step.kernel import (APPLY_LAUNCHES,
+                                                   APPLY_NORMS_LAUNCHES,
+                                                   COEFF_LAUNCHES, LAUNCHES)
+g = dist.group.WORLD
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(8)
+m, n, k, b = 1024, 768, 40, 16
+A = (torch.randn((m, k), generator=gen, dtype=torch.float64, device=dev)
+     @ torch.randn((k, n), generator=gen, dtype=torch.float64, device=dev))
+if backend == "gloo":
+    try:
+        rid_distributed(0, A, k, group=g, qr_impl="panel_parallel")
+    except ValueError as e:
+        print("RAISED", e)
+else:
+    for c in (COEFF_LAUNCHES, APPLY_LAUNCHES, APPLY_NORMS_LAUNCHES, LAUNCHES, GRAM):
+        c.reset()
+    dec = rid_distributed(9, A, k, group=g, qr_impl="panel_parallel",
+                          qr_panel=b, qr_norm_recompute=2)
+    panels = math.ceil(k / b)
+    assert COEFF_LAUNCHES.count == panels and APPLY_LAUNCHES.count == panels
+    assert APPLY_NORMS_LAUNCHES.count == 1 and LAUNCHES.count == 0
+    assert int(torch.unique(dec.J).numel()) == k
+    assert torch.equal(dec.P[:, dec.J], torch.eye(k, dtype=dec.P.dtype, device=dev))
+    err = float(spectral_error(10, A, dec.B, dec.P))
+    assert err <= error_bound(m, n, k) * expected_sigma_kp1(m, n), err
+    Y = sketch(9, A, 2 * k, kind="gaussian").Y
+    qr = panel_parallel_pivoted_qr(Y, k, group=g, panel=b, panel_impl="gram")
+    assert GRAM.count == panels
+    orth = float((qr.Q.mH @ qr.Q - torch.eye(k, dtype=Y.dtype, device=dev)).abs().max())
+    assert orth < 1e-10, orth
+    print("OK")
+dist.destroy_process_group()
+"""
+
+
+def _one_rank(backend: str, tmp_path) -> str:
+    """The one rank's standard output, after it exited cleanly."""
+    _device()
+    results = run_ranks(ONE_RANK_PROGRAM, 1, str(tmp_path), backend,
+                        timeout=300)
+    assert not failures(results), failures(results)
+    return results[0][1]
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_group_refuses_cuda_tensors(tmp_path):
+    """gloo would stage CUDA tensors through host memory: refused."""
+    assert "RAISED tensors on cuda:0 need a nccl process group" in \
+        _one_rank("gloo", tmp_path)
+
+
+@pytest.mark.cuda
+def test_cuda_rid_distributed_one_rank_nccl(tmp_path):
+    """The distributed path on a one-rank NCCL group: panel_coeff and
+    panel_apply once per panel (one recompute panel with emit_norms),
+    no panel_step, eq. (3); the gram path launches panel_gram per panel."""
+    assert "OK" in _one_rank("nccl", tmp_path)
+
+
+# One rank per card; argv: rank, world, work dir (holds the inputs).
+MULTI_RANK_PROGRAM = r"""
+import datetime, sys
+import torch
+import torch.distributed as dist
+rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("nccl", init_method="file://" + work + "/store",
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch.core import (panel_parallel_pivoted_qr, rid_distributed,
+                              shard_columns)
+g = dist.group.WORLD
+dev = torch.device("cuda", rank)
+inputs = torch.load(work + "/inputs.pt")
+out = {}
+for name, A in inputs.items():
+    A_loc = shard_columns(A.to(dev), g)
+    for impl in ("panel_parallel", "blocked"):
+        dec = rid_distributed(9, A_loc, 40, group=g, qr_impl=impl,
+                              qr_panel=16, qr_norm_recompute=2)
+        out[name, impl] = {f: getattr(dec, f).cpu() for f in "JQPB"}
+    Y_loc = shard_columns(A[:80].to(dev), g)
+    qr = panel_parallel_pivoted_qr(Y_loc, 40, group=g, panel=16,
+                                   panel_impl="gram")
+    out[name, "gram"] = {"J": qr.piv.cpu(), "Q": qr.Q.cpu()}
+torch.save(out, work + f"/rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_rid_distributed_across_cards(tmp_path):
+    """``rid_distributed`` with one NCCL rank per card (all the cards
+    there are, at least two): J and Q bitwise identical on every rank, the
+    pivot set and P of the single-card ``rid``, eq. (3) with the exact
+    sigma_{k+1}; the gram oracle likewise identical on every rank."""
+    _device()
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.kernels._build import load_library
+    load_library()                              # build once, not per rank
+    gen = torch.Generator().manual_seed(11)
+    m, n, r, k = 1024, 256 * world, 60, 40
+    scale = torch.logspace(0, 2, n, dtype=torch.float64)[torch.randperm(n, generator=gen)]
+    real = (torch.randn((m, r), generator=gen, dtype=torch.float64)
+            @ (torch.randn((r, n), generator=gen, dtype=torch.float64) * scale))
+    cplx = torch.complex(real, torch.randn((m, r), generator=gen, dtype=torch.float64)
+                         @ torch.randn((r, n), generator=gen, dtype=torch.float64))
+    inputs = {"float64": real, "complex128": cplx}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    errors = failures(run_ranks(MULTI_RANK_PROGRAM, world, str(tmp_path),
+                                timeout=300))
+    assert not errors, errors
+    outs = [torch.load(tmp_path / f"rank{rank}.pt") for rank in range(world)]
+    dev = torch.device("cuda", 0)
+    for key, first in outs[0].items():
+        for other in outs[1:]:
+            assert torch.equal(other[key]["J"], first["J"]), key
+            assert torch.equal(other[key]["Q"], first["Q"]), key
+    for name, A in inputs.items():
+        want = rid(9, A.to(dev), k, sketch_kind="gaussian", qr_impl="blocked",
+                   qr_panel=16)
+        wJ, wP = want.J.cpu(), want.P.cpu()
+        sigma = torch.linalg.svdvals(A)[k]
+        for impl in ("panel_parallel", "blocked"):
+            got = outs[0][name, impl]
+            P = torch.cat([o[name, impl]["P"] for o in outs], dim=1)
+            assert set(got["J"].tolist()) == set(wJ.tolist()), (name, impl)
+            assert torch.equal(got["B"], A[:, got["J"]])
+            go, wo = torch.argsort(got["J"]), torch.argsort(wJ)
+            assert float((P[go] - wP[wo]).abs().max()) <= 1e-8 * float(wP.abs().max())
+            err = torch.linalg.matrix_norm(A - got["B"] @ P, ord=2)
+            assert float(err) <= error_bound(m, n, k) * float(sigma), (name, impl)
+        Q = outs[0][name, "gram"]["Q"]
+        assert float((Q.mH @ Q - torch.eye(k, dtype=Q.dtype)).abs().max()) < 1e-10
