@@ -11,7 +11,9 @@ in order, printing one JSON line per phase:
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
-                 (bit-exact); duplicate-column panels;
+                 (bit-exact); duplicate-column panels; fwht bit-equal in
+                 the real types; tsolve on a pivoted-QR R1 and, by its
+                 backward error, on the bench's ill-conditioned R1;
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
@@ -26,6 +28,11 @@ in order, printing one JSON line per phase:
                  panel_impl="gram")`` on that sketch, against the fused path;
   7. c128     -- ``rid_distributed(..., qr_impl="panel_parallel")`` on a
                  complex128 ``A`` of 2^14 x 2^14, k=100;
+  bench       -- the paper's phase benchmarks (src/repro_torch/benchmarks):
+                 Table 2 (bench_sketch) and Table 4 (bench_tsolve) at the
+                 main row in f64, Table 1 (bench_total, srft) at the row
+                 k=100, m=n=2^14 in c128, with the launch counts of
+                 sketch_matmul, fwht and tsolve per call;
   8. times    -- each kernel's time at the main path's shapes beside its
                  bound, its plain version's time and the library call's;
   9. trace    -- the main path once more: the sketch and the rest timed
@@ -51,15 +58,27 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
+try:
+    from repro_torch.configs import PAPER_GRID
+except ImportError as exc:
+    print(f"chip_smoke: the port is not beside this script ({exc})",
+          file=sys.stderr)
+    sys.exit(2)
+
 SEED = 0
-# The paper's Table rows (src/repro/configs/paper_rid.py, PAPER_GRID[2] and
-# PAPER_GRID[0]); l = 2k.
-MAIN_K, MAIN_M, MAIN_N = 400, 2 ** 16, 2 ** 14
-DEFAULT_K, DEFAULT_M, DEFAULT_N = 100, 2 ** 14, 2 ** 14
+# The paper's Table rows (PAPER_GRID[2] and PAPER_GRID[0]); l = 2k.
+MAIN, DEFAULT = PAPER_GRID[2], PAPER_GRID[0]
+MAIN_K, MAIN_M, MAIN_N = MAIN.k, MAIN.m, MAIN.n
+DEFAULT_K, DEFAULT_M, DEFAULT_N = DEFAULT.k, DEFAULT.m, DEFAULT.n
 PANEL = 32
-# c128 sketch_accum runs at a quarter of the main path's m, so that phase 2
-# stays within a few seconds (4x the flops of f64 per element).
+# c128 sketch_accum and sketch_matmul run at a quarter of the main path's
+# m, so that phase 2 stays within a few seconds (4x the flops of f64 per
+# element); c128 fwht at a quarter of n, so that its plain version (a new
+# tensor per stage) stays within the card's memory.
 C128_ACCUM_M = 2 ** 14
+C128_FWHT_N = 2 ** 12
+# Normwise backward error bar of the triangular solve, times k * eps.
+TSOLVE_BWD_C = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W) for the bounds of the
 # f64 timings: HBM3 bytes/s, and the FP64 tensor-core rate, the least time
@@ -109,7 +128,8 @@ def main() -> int:
     try:
         import torch.distributed as dist
         from repro_torch.core import (error_bound, expected_sigma_kp1,
-                                      panel_parallel_pivoted_qr, rid,
+                                      panel_parallel_pivoted_qr, pivoted_qr,
+                                      rid,
                                       rid_distributed, rid_from_sketch,
                                       sketch, spectral_error)
         from repro_torch.kernels import _build
@@ -130,6 +150,22 @@ def main() -> int:
         from repro_torch.kernels.sketch_accum.kernel import (
             LAUNCHES as ACCUM_LAUNCHES)
         from repro_torch.kernels.sketch_accum.ref import sketch_accum_ref
+        from repro_torch.kernels.sketch_matmul import sketch_matmul
+        from repro_torch.kernels.sketch_matmul.kernel import (
+            LAUNCHES as MATMUL_LAUNCHES)
+        from repro_torch.kernels.sketch_matmul.ref import sketch_matmul_ref
+        from repro_torch.kernels.srht import fwht, fwht_factors
+        from repro_torch.kernels.srht.kernel import LAUNCHES as FWHT_LAUNCHES
+        from repro_torch.kernels.srht.ref import fwht_ref
+        from repro_torch.kernels.tsolve import tsolve
+        from repro_torch.kernels.tsolve.kernel import (
+            LAUNCHES as TSOLVE_LAUNCHES)
+        from repro_torch.kernels.tsolve.ref import tsolve_ref
+        from repro_torch.benchmarks import (bench_sketch, bench_total,
+                                            bench_tsolve)
+        from repro_torch.benchmarks.bench_tsolve import (backward_error,
+                                                         bench_system)
+        from repro_torch.benchmarks.common import ITERS, WARMUP
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -307,6 +343,90 @@ def main() -> int:
         del z, qp, w, r2, r2in, cdup
         torch.cuda.empty_cache()
 
+    # The kernels of the phase benchmarks (paper Tables 2 and 4), each
+    # against its plain version at the main row's shapes.
+    bench_err_f64 = {}          # max abs error at f64, per kernel
+    tsolve_main_f64 = None      # (R1, R) of the f64 pivoted QR, for phase 8
+    for dtype in (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128):
+        name, tol = dname(dtype), REL_TOL[dname(dtype)]
+        eps = torch.finfo(dtype.to_real() if dtype.is_complex else dtype).eps
+        l, k, n = 2 * MAIN_K, MAIN_K, MAIN_N
+        m = C128_ACCUM_M if dtype == torch.complex128 else MAIN_M
+        omega, a = randn((l, m), dtype), randn((m, n), dtype)
+        before = MATMUL_LAUNCHES.count
+        got = sketch_matmul(omega, a)
+        launches = MATMUL_LAUNCHES.count - before
+        want = sketch_matmul_ref(omega, a)
+        err, err_abs = rel_err(got, want), float((got - want).abs().max())
+        emit({"phase": "kernels", "kernel": "sketch_matmul", "dtype": name,
+              "l": l, "m": m, "n": n, "launches_per_call": launches,
+              "reduced": (f"m cut from {MAIN_M} to {m} (phase time)"
+                          if m != MAIN_M else None),
+              "max_abs_err": err_abs, "rel_err": err, "rel_tol": tol})
+        check(err <= tol, f"sketch_matmul {name}: rel err {err} > {tol}")
+        check(launches == 1, f"sketch_matmul {name}: {launches} launches")
+        if dtype == torch.float64:
+            bench_err_f64["sketch_matmul"] = err_abs
+        del omega, a, got, want
+        torch.cuda.empty_cache()
+
+        nf = C128_FWHT_N if dtype == torch.complex128 else MAIN_N
+        x = randn((MAIN_M, nf), dtype)
+        before = FWHT_LAUNCHES.count
+        got = fwht(x)
+        launches = FWHT_LAUNCHES.count - before
+        want = fwht_ref(x)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, want))
+        err, err_abs = rel_err(got, want), float((got - want).abs().max())
+        emit({"phase": "kernels", "kernel": "fwht", "dtype": name,
+              "m": MAIN_M, "n": nf, "factors_log2": fwht_factors(MAIN_M),
+              "launches_per_call": launches,
+              "reduced": (f"n cut from {MAIN_N} to {nf} (the plain "
+                          f"version's memory)" if nf != MAIN_N else None),
+              "bit_equal": exact, "max_abs_err": err_abs, "rel_err": err,
+              "rel_tol": 0.0 if not dtype.is_complex else tol})
+        check(exact or (dtype.is_complex and err <= tol),
+              f"fwht {name}: not bit-equal (rel err {err})")
+        check(launches == len(fwht_factors(MAIN_M)),
+              f"fwht {name}: {launches} launches")
+        if dtype == torch.float64:
+            bench_err_f64["fwht"] = err_abs
+        del x, got, want
+        torch.cuda.empty_cache()
+
+        # R1 of the main path: the pivoted QR of a rank-k sketch (l x n).
+        Y = randn((l, k), dtype) @ randn((k, n), dtype)
+        qr = pivoted_qr(Y, k)
+        R1, R = qr.R.index_select(1, qr.piv).contiguous(), qr.R
+        before = TSOLVE_LAUNCHES.count
+        got = tsolve(R1, R)
+        launches = TSOLVE_LAUNCHES.count - before
+        want = tsolve_ref(R1, R)
+        err, err_abs = rel_err(got, want), float((got - want).abs().max())
+        # The bench's R1 = triu(randn) + 3 I, exponentially ill-conditioned
+        # in k: held to its normwise backward error.
+        B1, B2 = bench_system(gen, k, n, dtype, dev)
+        bwd = backward_error(B1, B2, tsolve(B1, B2))
+        bwd_plain = backward_error(B1, B2, tsolve_ref(B1, B2))
+        bar = TSOLVE_BWD_C * k * eps
+        emit({"phase": "kernels", "kernel": "tsolve", "dtype": name, "k": k,
+              "n": n, "launches_per_call": launches,
+              "pivoted_qr_R1": {"max_abs_err": err_abs, "rel_err": err,
+                                "rel_tol": tol},
+              "bench_R1": {"backward_err": bwd,
+                           "backward_err_plain": bwd_plain,
+                           "bar": bar, "bar_is": f"{TSOLVE_BWD_C} k eps"}})
+        check(err <= tol, f"tsolve {name}: rel err {err} > {tol}")
+        check(bwd <= bar, f"tsolve {name}: backward error {bwd} > {bar}")
+        check(launches == 1, f"tsolve {name}: {launches} launches")
+        if dtype == torch.float64:
+            bench_err_f64["tsolve"] = err_abs
+            tsolve_main_f64 = (R1, R)
+        del Y, qr, got, want, B1, B2
+        torch.cuda.empty_cache()
+
     # ----------------------------------------- 3. main path, f64 gaussian
     def lowrank(m, n, k, dtype):
         return randn((m, k), dtype) @ randn((k, n), dtype)
@@ -316,7 +436,10 @@ def main() -> int:
                       "panel_apply(emit_norms)": APPLY_NORMS_LAUNCHES,
                       "panel_gram": GRAM_LAUNCHES,
                       "panel_step": PANEL_LAUNCHES,
-                      "sketch_accum": ACCUM_LAUNCHES}
+                      "sketch_accum": ACCUM_LAUNCHES,
+                      "sketch_matmul": MATMUL_LAUNCHES,
+                      "fwht": FWHT_LAUNCHES,
+                      "tsolve": TSOLVE_LAUNCHES}
 
     def reset_counts():
         for ctr in split_counters.values():
@@ -534,6 +657,69 @@ def main() -> int:
         dist.destroy_process_group()
         store.cleanup()
 
+    # ------------- bench: the paper's phase benchmarks (Tables 1, 2 and 4)
+    calls = WARMUP + ITERS          # calls of each column's op per row
+
+    def bench(fn) -> tuple[list, dict, float]:
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return rows, read_counts(), wall
+
+    def finite_times(rows) -> bool:
+        return all(math.isfinite(v) and v > 0 for r in rows
+                   for key, v in r.items() if key.endswith("_s"))
+
+    sk_rows, sk_counts, sk_wall = bench(
+        lambda: bench_sketch.run([MAIN], torch.float64))
+    n_factors = len(fwht_factors(MAIN_M))
+    per_call = {"sketch_matmul": sk_counts["sketch_matmul"] / calls,
+                "fwht": sk_counts["fwht"] / calls,
+                "sketch_accum": sk_counts["sketch_accum"] / calls}
+    emit({"phase": "bench", "table": 2,
+          "call": "bench_sketch.run([PAPER_GRID[2]], torch.float64)",
+          "rows": sk_rows, "launches": sk_counts,
+          "launches_per_call": per_call, "calls_per_column": calls,
+          "wall_s": sk_wall})
+    check(finite_times(sk_rows), f"bench_sketch: rows {sk_rows}")
+    check(sk_counts["sketch_matmul"] == calls
+          and sk_counts["fwht"] == calls * n_factors
+          and sk_counts["sketch_accum"] == calls,
+          f"bench_sketch: launches {sk_counts}, expected {calls} "
+          f"sketch_matmul, {calls * n_factors} fwht, {calls} sketch_accum")
+
+    ts_rows, ts_counts, ts_wall = bench(
+        lambda: bench_tsolve.run([MAIN], torch.float64))
+    bar = TSOLVE_BWD_C * MAIN_K * torch.finfo(torch.float64).eps
+    # one call more than the timed ones: the backward-error check
+    emit({"phase": "bench", "table": 4,
+          "call": "bench_tsolve.run([PAPER_GRID[2]], torch.float64)",
+          "rows": ts_rows, "launches": ts_counts,
+          "launches_per_call": {"tsolve": ts_counts["tsolve"] / (calls + 1)},
+          "calls": calls + 1, "backward_err_bar": bar, "wall_s": ts_wall})
+    check(finite_times(ts_rows), f"bench_tsolve: rows {ts_rows}")
+    check(ts_counts["tsolve"] == calls + 1,
+          f"bench_tsolve: {ts_counts['tsolve']} tsolve launches, expected "
+          f"{calls + 1}")
+    check(ts_rows[0]["cuda_backward_err"] <= bar,
+          f"bench_tsolve: backward error {ts_rows[0]['cuda_backward_err']} "
+          f"> {bar}")
+
+    bt_rows, bt_counts, bt_wall = bench(
+        lambda: bench_total.run([DEFAULT], "srft", torch.complex128))
+    emit({"phase": "bench", "table": 1,
+          "call": "bench_total.run([PAPER_GRID[0]], 'srft', "
+                  "torch.complex128)",
+          "rows": bt_rows, "launches": bt_counts, "wall_s": bt_wall})
+    check(finite_times(bt_rows), f"bench_total: rows {bt_rows}")
+    check(bt_counts["panel_step"] == calls * math.ceil(DEFAULT_K / PANEL),
+          f"bench_total: launches {bt_counts}")
+    bench_launches = {"sketch_matmul": sk_counts["sketch_matmul"],
+                      "fwht": sk_counts["fwht"], "tsolve": ts_counts["tsolve"]}
+
     # ------------------------------------ 8. times at the main path shapes
     dtype, esize = torch.float64, 8
     l, m, n, b = 2 * MAIN_K, MAIN_M, MAIN_N, PANEL
@@ -617,6 +803,41 @@ def main() -> int:
     del c, z, qp, w, r2in
     torch.cuda.empty_cache()
 
+    # The kernels of the phase benchmarks; launches from the bench phase.
+    omega, a = randn((l, m), dtype), randn((m, n), dtype)
+    matmul = timed(
+        "sketch_matmul", "src/repro_torch/csrc/sketch_matmul.cu",
+        "src/repro/kernels/sketch_matmul/kernel.py:41",
+        bench_launches["sketch_matmul"], bench_err_f64["sketch_matmul"],
+        lambda: sketch_matmul(omega, a), lambda: sketch_matmul_ref(omega, a),
+        lambda: torch.matmul(omega, a), 2.0 * l * m * n,
+        esize * (l * m + m * n + l * n), {"l": l, "m": m, "n": n},
+        reps=3, plain_reps=3)
+    del omega
+    # m n log2(m) butterfly adds and m n scale multiplies; x read once,
+    # the result written once (the split's extra sweep is not counted).
+    hadamard = timed(
+        "fwht", "src/repro_torch/csrc/fwht.cu",
+        "src/repro/kernels/srht/kernel.py:46",
+        bench_launches["fwht"], bench_err_f64["fwht"],
+        lambda: fwht(a), lambda: fwht_ref(a), None,
+        m * n * (math.log2(m) + 1.0), esize * 2 * m * n, {"m": m, "n": n},
+        reps=5, plain_reps=3, factors_log2=fwht_factors(m))
+    del a
+    torch.cuda.empty_cache()
+    R1, R = tsolve_main_f64
+    kk = R1.shape[0]
+    # k^2 n (k(k+1)/2 n multiply-adds); R1 and R2 read, T written.
+    trisolve = timed(
+        "tsolve", "src/repro_torch/csrc/tsolve.cu",
+        "src/repro/kernels/tsolve/kernel.py:62",
+        bench_launches["tsolve"], bench_err_f64["tsolve"],
+        lambda: tsolve(R1, R), lambda: tsolve_ref(R1, R),
+        lambda: torch.linalg.solve_triangular(R1, R, upper=True),
+        1.0 * kk * kk * n, esize * (kk * kk + 2 * kk * n), {"k": kk, "n": n},
+        plain_reps=3)
+    del R1, R, tsolve_main_f64
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -633,7 +854,8 @@ def main() -> int:
     del A, Y
     torch.cuda.empty_cache()
 
-    emit({"kernels": [accum, pstep, coeff, apply, gram]})
+    emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
+                      trisolve]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

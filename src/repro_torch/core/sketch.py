@@ -5,7 +5,9 @@
                   per row, a DFT down every column (``torch.fft``), ``l``
                   rows drawn uniformly with replacement, scale ``1/sqrt(l)``.
 * ``srht``     -- the real analogue: random signs, a Walsh-Hadamard
-                  transform on rows zero-padded to a power of two.
+                  transform on rows zero-padded to a power of two (the
+                  plain ``kernels/srht`` versions, as the reference runs
+                  its jnp transform here).
 * ``gaussian`` -- ``Y = Omega A`` through the port's ``sketch_accum``.
 
 Each backend accepts its random operator injected (``phases=``/``rows=``,
@@ -28,33 +30,14 @@ import torch
 
 from ..kernels.common import cdiv
 from ..kernels.sketch_accum import ACCUM_BLOCK, sketch_accum
+from ..kernels.srht.ref import fwht_ref as fwht
+from ..kernels.srht.ref import next_pow2, srht_ref
 from .rng import as_generator, block_seed, check_device, seed_of
 from .types import SketchResult
 
 __all__ = ["sketch", "srft_sketch", "srht_sketch", "gaussian_sketch",
            "gaussian_omega_cols", "finalize_gaussian_sketch", "fwht",
            "next_pow2"]
-
-
-def next_pow2(m: int) -> int:
-    return 1 << max(0, (m - 1)).bit_length()
-
-
-def fwht(x: torch.Tensor) -> torch.Tensor:
-    """Orthonormal fast Walsh-Hadamard transform along dim 0 (its length
-    must be a power of two)."""
-    m = x.shape[0]
-    if m & (m - 1):
-        raise ValueError(f"FWHT length must be a power of two, got {m}")
-    tail = tuple(x.shape[1:])
-    y = x
-    h = 1
-    while h < m:
-        y = y.reshape((m // (2 * h), 2, h) + tail)
-        y = torch.stack([y[:, 0] + y[:, 1], y[:, 0] - y[:, 1]], dim=1)
-        y = y.reshape((m,) + tail)
-        h *= 2
-    return y * (1.0 / math.sqrt(m))
 
 
 def _complex_for(dtype: torch.dtype) -> torch.dtype:
@@ -99,11 +82,7 @@ def srht_sketch(gen_or_seed, A: torch.Tensor, l: int, *,
                               device=A.device) * 2 - 1
     if rows is None:
         rows = torch.randint(0, mp, (l,), generator=gen, device=A.device)
-    DA = signs.to(A.dtype)[:, None] * A
-    if mp != m:
-        DA = torch.nn.functional.pad(DA, (0, 0, 0, mp - m))
-    HDA = fwht(DA)
-    return HDA[rows.to(A.device, torch.int64)] * math.sqrt(mp / l)
+    return srht_ref(signs, A, rows)
 
 
 def _omega_block(seed: int, b: int, l: int, dtype: torch.dtype,

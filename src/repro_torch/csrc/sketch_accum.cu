@@ -21,48 +21,36 @@
 // Bound: at the main path (f64, l=800, m=2^16, n=2^14) the work is
 // 2 l m n = 1.7e12 flop against ~9.2e9 bytes moved, so the kernel is
 // bound by operations.  This is the simple shared-memory tiled form
-// (register micro-tiles, one smem stage); wgmma/TMA pipelining is later
-// work.
-#include "common.cuh"
+// (register micro-tiles, one smem stage, gemm_tile.cuh, shared with
+// sketch_matmul.cu); wgmma/TMA pipelining is later work.
+#include "gemm_tile.cuh"
 
 namespace {
 
 using namespace repro;
 
 constexpr int kAccumBlock = 128;  // ACCUM_BLOCK, the replay constant
-constexpr int kBK = 16;           // rows of a per shared-memory stage
-constexpr int kTX = 16, kTY = 16; // threads per CTA: kTX x kTY = 256
-
-// Per-thread micro-tile: two register tiles of TM x TN elements (`run` and
-// `blk`) must fit beside the operands, so wider types take smaller tiles.
-template <class T> struct AccumTile;
-template <> struct AccumTile<float> { static constexpr int TM = 8, TN = 8; };
-template <> struct AccumTile<double> { static constexpr int TM = 4, TN = 8; };
-template <> struct AccumTile<cplx<float>> { static constexpr int TM = 4, TN = 4; };
-template <> struct AccumTile<cplx<double>> { static constexpr int TM = 4, TN = 4; };
 
 template <class T>
-__global__ void __launch_bounds__(kTX * kTY)
+__global__ void __launch_bounds__(kGemmTX * kGemmTY)
 sketch_accum_kernel(const T* __restrict__ x, const T* __restrict__ a,
                     const T* __restrict__ acc, T* __restrict__ out,
                     int64_t l, int64_t m, int64_t n) {
-  constexpr int TM = AccumTile<T>::TM, TN = AccumTile<T>::TN;
-  constexpr int BM = kTY * TM, BN = kTX * TN;
-  __shared__ T xs[kBK][BM + 1];  // x tile, k-major; +1 breaks bank conflicts
-  __shared__ T as[kBK][BN];
+  constexpr int TM = GemmShape<T>::TM, TN = GemmShape<T>::TN;
+  __shared__ GemmSmem<T> sm;
 
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTX + tx;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * BN;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * GemmShape<T>::BM;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * GemmShape<T>::BN;
 
-  // Thread (ty, tx) owns rows row0 + ty + kTY*i and cols col0 + tx + kTX*j.
+  // Thread (ty, tx) owns rows row0 + ty + kGemmTY*i and cols
+  // col0 + tx + kGemmTX*j.
   T run[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int64_t r = row0 + ty + kTY * i, c = col0 + tx + kTX * j;
+      const int64_t r = row0 + ty + kGemmTY * i, c = col0 + tx + kGemmTX * j;
       run[i][j] = (r < l && c < n) ? acc[r * n + c] : T{};
     }
   }
@@ -74,33 +62,7 @@ sketch_accum_kernel(const T* __restrict__ x, const T* __restrict__ a,
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) blk[i][j] = T{};
-
-    for (int64_t k0 = kb; k0 < kend; k0 += kBK) {
-      for (int e = tid; e < BM * kBK; e += kTX * kTY) {
-        const int r = e / kBK, kk = e % kBK;
-        const int64_t gr = row0 + r, gk = k0 + kk;
-        xs[kk][r] = (gr < l && gk < kend) ? x[gr * m + gk] : T{};
-      }
-      for (int e = tid; e < kBK * BN; e += kTX * kTY) {
-        const int kk = e / BN, c = e % BN;
-        const int64_t gk = k0 + kk, gc = col0 + c;
-        as[kk][c] = (gk < kend && gc < n) ? a[gk * n + gc] : T{};
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        T xr[TM], ar[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xr[i] = xs[kk][ty + kTY * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) ar[j] = as[kk][tx + kTX * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) blk[i][j] = madd(xr[i], ar[j], blk[i][j]);
-      }
-      __syncthreads();
-    }
+    gemm_tile_mac<T>(x, a, l, m, n, row0, col0, kb, kend, blk, sm);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -111,7 +73,7 @@ sketch_accum_kernel(const T* __restrict__ x, const T* __restrict__ a,
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int64_t r = row0 + ty + kTY * i, c = col0 + tx + kTX * j;
+      const int64_t r = row0 + ty + kGemmTY * i, c = col0 + tx + kGemmTX * j;
       if (r < l && c < n) out[r * n + c] = run[i][j];
     }
   }
@@ -121,11 +83,8 @@ template <class T>
 void launch_sketch_accum(const void* x, const void* a, const void* acc,
                          void* out, int64_t l, int64_t m, int64_t n,
                          cudaStream_t stream) {
-  constexpr int BM = kTY * AccumTile<T>::TM, BN = kTX * AccumTile<T>::TN;
-  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
-                  static_cast<unsigned>((l + BM - 1) / BM));
-  const dim3 block(kTX, kTY);
-  sketch_accum_kernel<T><<<grid, block, 0, stream>>>(
+  sketch_accum_kernel<T><<<gemm_grid<T>(l, n), dim3(kGemmTX, kGemmTY), 0,
+                           stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a),
       static_cast<const T*>(acc), static_cast<T*>(out), l, m, n);
 }

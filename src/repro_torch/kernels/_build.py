@@ -49,6 +49,13 @@ _SIGNATURES = {
     "repro_panel_apply": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     # dtype, c, z, g, v, l, b, n, stream
     "repro_panel_gram": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, omega, a, out, l, m, n, stream
+    "repro_sketch_matmul": [_I, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, x, y, m, n, stride, f_log2, scale, stream
+    "repro_fwht_pass": [_I, _P, _P, _I64, _I64, _I64, _I, ctypes.c_double,
+                        _P],
+    # dtype, r1, r2, t, k, n, stream
+    "repro_tsolve": [_I, _P, _P, _P, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

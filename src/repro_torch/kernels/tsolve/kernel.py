@@ -1,0 +1,41 @@
+"""Wrapper of the Hopper kernel for the column-parallel blocked triangular
+solve (``csrc/tsolve.cu``), which replaces the TPU kernel ``tsolve_kernel``
+in ``repro/kernels/tsolve/kernel.py``.
+
+One launch, one CTA per 32-column slab of ``r2``: row blocks of 32 from
+the bottom, a trailing update from the rows already solved, then the
+diagonal block row by row, dividing by the raw diagonal (no clamp).  Only
+the upper triangle of ``r1`` is read; ``k`` is masked, never padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._build import check_status, load_library
+from ..common import LaunchCounter, check_kernel_args, dtype_code
+
+__all__ = ["tsolve_kernel", "LAUNCHES"]
+
+LAUNCHES = LaunchCounter("tsolve")
+
+
+def tsolve_kernel(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: ``r1`` (k, k) and ``r2`` (k, n), contiguous CUDA
+    tensors of one dtype in ``KERNEL_DTYPES``.  Returns ``T`` (k, n) with
+    ``triu(r1) @ T = r2``; does not synchronize."""
+    dev = check_kernel_args("tsolve", r1, r2)
+    k, n = r2.shape
+    if tuple(r1.shape) != (k, k):
+        raise ValueError(f"tsolve: shapes r1 {tuple(r1.shape)}, "
+                         f"r2 {tuple(r2.shape)}")
+    t = torch.empty_like(r2)
+    if k == 0 or n == 0:
+        return t
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.repro_tsolve(dtype_code(r2.dtype), r1.data_ptr(),
+                              r2.data_ptr(), t.data_ptr(), k, n, stream)
+    check_status("tsolve", rc)
+    LAUNCHES.add()
+    return t

@@ -31,6 +31,15 @@ from repro_torch.kernels.panel_step.ref import (panel_apply_norms_ref,
 from repro_torch.kernels.sketch_accum import sketch_accum
 from repro_torch.kernels.sketch_accum.kernel import LAUNCHES as ACCUM_LAUNCHES
 from repro_torch.kernels.sketch_accum.ref import sketch_accum_ref
+from repro_torch.kernels.sketch_matmul import sketch_matmul
+from repro_torch.kernels.sketch_matmul.kernel import LAUNCHES as MATMUL_LAUNCHES
+from repro_torch.kernels.sketch_matmul.ref import sketch_matmul_ref
+from repro_torch.kernels.srht import fwht, fwht_factors, srht
+from repro_torch.kernels.srht.kernel import LAUNCHES as FWHT_LAUNCHES
+from repro_torch.kernels.srht.ref import fwht_ref, srht_ref
+from repro_torch.kernels.tsolve import tsolve
+from repro_torch.kernels.tsolve.kernel import LAUNCHES as TSOLVE_LAUNCHES
+from repro_torch.kernels.tsolve.ref import tsolve_ref
 from torch_ranks import failures, run_ranks
 
 DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
@@ -215,6 +224,107 @@ def test_cuda_rid_end_to_end(sketch_kind, dtype):
     if dtype in (torch.float64, torch.complex128):
         err = float(spectral_error(6, A, dec.B, dec.P))
         assert err <= error_bound(m, n, k) * expected_sigma_kp1(m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sketch_matmul_matches_plain(dtype):
+    """One launch per call, complex included; ragged l, m and n."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for l, m, n in [(8, 64, 32), (70, 777, 150), (130, 1037, 257), (3, 0, 5)]:
+        omega, a = _randn(gen, (l, m), dtype, dev), _randn(gen, (m, n), dtype, dev)
+        before = MATMUL_LAUNCHES.count
+        got = sketch_matmul(omega, a)
+        assert MATMUL_LAUNCHES.count == before + 1
+        want = sketch_matmul_ref(omega, a)
+        if m == 0:
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 2, 64, 256, 512, 8192, 2 ** 16, 2 ** 18])
+def test_cuda_fwht_matches_plain(dtype, m):
+    """One launch per Kronecker factor (three at m = 2^18); bit-equal to
+    the plain version in the real dtypes (exact butterflies in the same
+    order, one scale)."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _randn(gen, (m, 40 if m < 2 ** 16 else 3), dtype, dev)
+    before = FWHT_LAUNCHES.count
+    got = fwht(x)
+    assert FWHT_LAUNCHES.count == before + len(fwht_factors(m))
+    want = fwht_ref(x)
+    if dtype.is_complex:
+        assert _rel(got, want) <= REL_TOL[dtype]
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_srht_matches_plain(dtype):
+    """A non-power-of-two m: signs, zero pad, the kernel's transform, row
+    gather and scale give the plain version's bits."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    m, n, l = 700, 96, 32
+    a = _randn(gen, (m, n), dtype, dev)
+    signs = (torch.randint(0, 2, (m,), generator=gen, device=dev) * 2 - 1).to(dtype)
+    rows = torch.randint(0, 1024, (l,), generator=gen, device=dev)
+    before = FWHT_LAUNCHES.count
+    got = srht(signs, a, rows)
+    assert FWHT_LAUNCHES.count == before + len(fwht_factors(1024))
+    assert torch.equal(got, srht_ref(signs, a, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(1, 5), (31, 40), (33, 257), (150, 100), (400, 300),
+                                 (1000, 70)])
+def test_cuda_tsolve_matches_plain(dtype, k, n):
+    """A well-conditioned R1 (the R of a QR, junk below the diagonal,
+    which must not be read): one launch, agreement with the plain
+    version relative to the largest entry of T."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    r = torch.linalg.qr(_randn(gen, (k + 20, k), dtype, dev)).R
+    r1 = r + torch.tril(_randn(gen, (k, k), dtype, dev), -1)
+    r2 = _randn(gen, (k, n), dtype, dev)
+    before = TSOLVE_LAUNCHES.count
+    got = tsolve(r1, r2)
+    assert TSOLVE_LAUNCHES.count == before + 1
+    assert _rel(got, tsolve_ref(r1, r2)) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_tsolve_backward_error_on_bench_system(dtype):
+    """The bench's R1 = triu(randn) + 3 I is exponentially ill-conditioned
+    in k, so the kernel is held to a normwise backward error of 4 k eps."""
+    from repro_torch.benchmarks.bench_tsolve import backward_error, bench_system
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    k = 200
+    r1, r2 = bench_system(gen, k, 300, dtype, dev)
+    eps = torch.finfo(dtype.to_real() if dtype.is_complex else dtype).eps
+    assert backward_error(r1, r2, tsolve(r1, r2)) <= 4 * k * eps
+
+
+@pytest.mark.cuda
+def test_cuda_bench_modules_run_one_small_row():
+    from repro_torch.benchmarks import bench_sketch, bench_total, bench_tsolve
+    from repro_torch.configs import SMALL_GRID
+    _device()
+    rows = (bench_sketch.run(SMALL_GRID[:1], torch.float32)
+            + bench_tsolve.run(SMALL_GRID[:1], torch.float32)
+            + bench_total.run(SMALL_GRID[:1], "srft", torch.complex64))
+    for row in rows:
+        assert row["device"] == "cuda"
+        assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))
 
 
 # A one-rank process group runs in a subprocess (tests/torch_ranks.py), so
