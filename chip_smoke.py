@@ -14,6 +14,8 @@ in order, printing one JSON line per phase:
                  (bit-exact); duplicate-column panels; fwht bit-equal in
                  the real types; tsolve on a pivoted-QR R1 and, by its
                  backward error, on the bench's ill-conditioned R1;
+                 project_out (k=400) and panel_deflate (b=32) at l=800,
+                 n=2^14, both outputs of panel_deflate;
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
@@ -32,7 +34,13 @@ in order, printing one JSON line per phase:
                  Table 2 (bench_sketch) and Table 4 (bench_tsolve) at the
                  main row in f64, Table 1 (bench_total, srft) at the row
                  k=100, m=n=2^14 in c128, with the launch counts of
-                 sketch_matmul, fwht and tsolve per call;
+                 sketch_matmul, fwht and tsolve per call; Table 3
+                 (bench_qr) at the main row in f64 and its fused-vs-split
+                 sweep (l=256, n=4096, k=128, f32), Table 5 (bench_error)
+                 at the row k=100, m=n=2^14 in c128 and its known-spectrum
+                 grid on a one-rank NCCL group, with the launches of
+                 project_out, panel_deflate, panel_gram and panel_step
+                 per call against the counts the code implies;
   8. times    -- each kernel's time at the main path's shapes beside its
                  bound, its plain version's time and the library call's;
   9. trace    -- the main path once more: the sketch and the rest timed
@@ -46,12 +54,12 @@ the rest of the repository beside it, the script exits non-zero at once.
 """
 from __future__ import annotations
 
-import datetime
+import contextlib
+import io
 import json
 import math
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +141,12 @@ def main() -> int:
                                       rid_distributed, rid_from_sketch,
                                       sketch, spectral_error)
         from repro_torch.kernels import _build
+        from repro_torch.kernels.cgs import panel_deflate, project_out
+        from repro_torch.kernels.cgs.kernel import DEFLATE_LAUNCHES
+        from repro_torch.kernels.cgs.kernel import (
+            LAUNCHES as PROJECT_LAUNCHES)
+        from repro_torch.kernels.cgs.ref import (panel_deflate_ref,
+                                                 project_out_ref)
         from repro_torch.kernels.panel_gram import panel_gram
         from repro_torch.kernels.panel_gram.kernel import (
             LAUNCHES as GRAM_LAUNCHES)
@@ -161,8 +175,10 @@ def main() -> int:
         from repro_torch.kernels.tsolve.kernel import (
             LAUNCHES as TSOLVE_LAUNCHES)
         from repro_torch.kernels.tsolve.ref import tsolve_ref
-        from repro_torch.benchmarks import (bench_sketch, bench_total,
+        from repro_torch.benchmarks import (bench_error, bench_qr,
+                                            bench_sketch, bench_total,
                                             bench_tsolve)
+        from repro_torch.core import resolve_panel
         from repro_torch.benchmarks.bench_tsolve import (backward_error,
                                                          bench_system)
         from repro_torch.benchmarks.common import ITERS, WARMUP
@@ -427,11 +443,57 @@ def main() -> int:
         del Y, qr, got, want, B1, B2
         torch.cuda.empty_cache()
 
+    # The CGS kernels of paper Table 3 at its main row: project_out against
+    # an orthonormal l x k basis, panel_deflate against its first 32
+    # columns; both outputs of panel_deflate are checked.
+    for dtype in (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128):
+        name, tol = dname(dtype), REL_TOL[dname(dtype)]
+        l, k, n = 2 * MAIN_K, MAIN_K, MAIN_N
+        q = torch.linalg.qr(randn((l, k), dtype)).Q.contiguous()
+        qp = q[:, :PANEL].contiguous()
+        z = randn((l, n), dtype)
+        before = PROJECT_LAUNCHES.count
+        got = project_out(q, z)
+        launches = PROJECT_LAUNCHES.count - before
+        want = project_out_ref(q, z)
+        again = project_out(q, z)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(again, got))
+        err, err_abs = rel_err(got, want), float((got - want).abs().max())
+        emit({"phase": "kernels", "kernel": "project_out", "dtype": name,
+              "l": l, "k": k, "n": n, "launches_per_call": launches,
+              "max_abs_err": err_abs, "rel_err": err, "rel_tol": tol,
+              "repeat_same_bits": same})
+        check(err <= tol, f"project_out {name}: rel err {err} > {tol}")
+        check(launches == 1, f"project_out {name}: {launches} launches")
+        check(same, f"project_out {name}: a repeated call gave other bits")
+        if dtype == torch.float64:
+            bench_err_f64["project_out"] = err_abs
+        before = DEFLATE_LAUNCHES.count
+        got = panel_deflate(qp, z)
+        launches = DEFLATE_LAUNCHES.count - before
+        want = panel_deflate_ref(qp, z)
+        errs = {key: rel_err(u, v) for key, u, v in zip(("o", "w"), got, want)}
+        err_abs = max_abs(got, want)
+        emit({"phase": "kernels", "kernel": "panel_deflate", "dtype": name,
+              "l": l, "b": PANEL, "n": n, "launches_per_call": launches,
+              "max_abs_err": err_abs, "rel_err": errs, "rel_tol": tol})
+        check(max(errs.values()) <= tol,
+              f"panel_deflate {name}: rel errs {errs} > {tol}")
+        check(launches == 1, f"panel_deflate {name}: {launches} launches")
+        if dtype == torch.float64:
+            bench_err_f64["panel_deflate"] = err_abs
+        del q, qp, z, got, want, again
+        torch.cuda.empty_cache()
+
     # ----------------------------------------- 3. main path, f64 gaussian
     def lowrank(m, n, k, dtype):
         return randn((m, k), dtype) @ randn((k, n), dtype)
 
-    split_counters = {"panel_coeff": COEFF_LAUNCHES,
+    split_counters = {"project_out": PROJECT_LAUNCHES,
+                      "panel_deflate": DEFLATE_LAUNCHES,
+                      "panel_coeff": COEFF_LAUNCHES,
                       "panel_apply": APPLY_LAUNCHES,
                       "panel_apply(emit_norms)": APPLY_NORMS_LAUNCHES,
                       "panel_gram": GRAM_LAUNCHES,
@@ -645,17 +707,8 @@ def main() -> int:
     check_id(res, "default")
 
     # ------------- 5. distributed path on a one-rank NCCL group, f64 main
-    store = tempfile.TemporaryDirectory()
-    torch.cuda.set_device(dev)
-    dist.init_process_group("nccl", init_method=f"file://{store.name}/store",
-                            rank=0, world_size=1,
-                            timeout=datetime.timedelta(seconds=300))
-    try:
-        dist_launches, gram_launches = run_distributed_phases(
-            dist.group.WORLD)
-    finally:
-        dist.destroy_process_group()
-        store.cleanup()
+    with bench_error.one_rank_group(dev) as group:
+        dist_launches, gram_launches = run_distributed_phases(group)
 
     # ------------- bench: the paper's phase benchmarks (Tables 1, 2 and 4)
     calls = WARMUP + ITERS          # calls of each column's op per row
@@ -719,6 +772,99 @@ def main() -> int:
           f"bench_total: launches {bt_counts}")
     bench_launches = {"sketch_matmul": sk_counts["sketch_matmul"],
                       "fwht": sk_counts["fwht"], "tsolve": ts_counts["tsolve"]}
+
+    # Tables 3 and 5.  The modules print their CSV rows; those go into the
+    # phase lines instead, so that standard output stays one JSON object a
+    # line.
+    cgs_names = ("project_out", "panel_deflate", "panel_gram", "panel_step")
+
+    def _quiet_call(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    def check_counts(what, counts, expected, calls_):
+        got = {name: counts[name] for name in expected}
+        emit({"phase": "bench", "table": what, "launches": got,
+              "expected": expected, "calls": calls_,
+              "launches_per_call": {name: got[name] / calls_
+                                    for name in cgs_names}})
+        check(got == expected, f"{what}: launches {got}, expected {expected}")
+
+    def n_panels(k, widths):
+        return sum(math.ceil(k / b) for b in widths)
+
+    q3_rows, q3_counts, q3_wall = bench(
+        lambda: bench_qr.run([MAIN], torch.float64))
+    emit({"phase": "bench", "table": 3,
+          "call": "bench_qr.run([PAPER_GRID[2]], torch.float64)",
+          "rows": q3_rows, "wall_s": q3_wall})
+    check(finite_times(q3_rows), f"bench_qr: rows {q3_rows}")
+    # One project_out and one panel_deflate per call of their columns;
+    # ceil(k / b) panel_step per blocked call at each width.
+    check_counts(3, q3_counts,
+                 {"project_out": calls, "panel_deflate": calls,
+                  "panel_gram": 0,
+                  "panel_step": calls * n_panels(MAIN_K,
+                                                 bench_qr.PANEL_SWEEP)},
+                 calls)
+    qr_launches = {name: q3_counts[name]
+                   for name in ("project_out", "panel_deflate")}
+
+    sw_rows, sw_counts, sw_wall = bench(lambda: _quiet_call(
+        lambda: bench_qr.fused_vs_split_sweep(bench_qr.PANEL_SWEEP)))
+    emit({"phase": "bench", "table": "3 (fused vs split)",
+          "call": "bench_qr.fused_vs_split_sweep(PANEL_SWEEP)",
+          "rows": sw_rows, "wall_s": sw_wall})
+    check(finite_times(sw_rows), f"fused_vs_split_sweep: rows {sw_rows}")
+    # Per split call ceil(k / b) panel_gram and panel_deflate; per fused
+    # call ceil(k / b) panel_step.
+    sw_panels = calls * n_panels(bench_qr.ACCEPT_K, bench_qr.PANEL_SWEEP)
+    check_counts("3 (fused vs split)", sw_counts,
+                 {"project_out": 0, "panel_deflate": sw_panels,
+                  "panel_gram": sw_panels, "panel_step": sw_panels}, calls)
+
+    t5_rows, t5_counts, t5_wall = bench(
+        lambda: bench_error.run([DEFAULT]))
+    emit({"phase": "bench", "table": 5,
+          "call": "bench_error.run([PAPER_GRID[0]])",
+          "sketch": "srft", "qr_impl": "cgs2", "dtype": "complex128",
+          "rows": t5_rows, "wall_s": t5_wall})
+    check(all(math.isfinite(r["err_2norm"]) for r in t5_rows),
+          f"bench_error: rows {t5_rows}")
+    check(all(r["within_bound"] for r in t5_rows),
+          f"bench_error: eq.(3) violated: {t5_rows}")
+    # The paper's CGS2 QR and the SRFT run no kernel of the port.
+    check_counts(5, t5_counts, {name: 0 for name in cgs_names}, 1)
+
+    with bench_error.one_rank_group(dev) as group:
+        gr_rows, gr_counts, gr_wall = bench(lambda: _quiet_call(
+            lambda: bench_error.grid_sweep(group=group, device=dev)))
+    grid = [r for r in gr_rows if r["bench"] == "error_grid"]
+    width = [r for r in gr_rows if r["bench"] == "error_grid_width"]
+    summary = [r for r in gr_rows if r["bench"] == "error_grid_summary"]
+    emit({"phase": "bench", "table": "5 (known-spectrum grid)",
+          "call": "bench_error.grid_sweep(group=g)",
+          "rows": len(gr_rows), "worst_ratio": summary, "width": width,
+          "max_grid_ratio": max(r["ratio"] for r in grid),
+          "wall_s": gr_wall})
+    # grid_sweep asserts the gated rows itself; checked again here.
+    check(all(r["within_bound"] for r in grid + summary),
+          "bench_error grid: eq.(3) violated")
+    # Per gaussian rid: one sketch_accum; per blocked rid ceil(k / b)
+    # panel_step with b the auto width (or the sweep's width); per
+    # panel_parallel rid ceil(k / b) panel_coeff and panel_apply.
+    auto = {r["k"]: math.ceil(r["k"] / resolve_panel("auto", r["k"],
+                                                      2 * r["k"]))
+            for r in grid}
+    par = sum(auto[r["k"]] for r in grid if r["impl"] == "panel_parallel")
+    check_counts("5 (known-spectrum grid)", gr_counts,
+                 {"project_out": 0, "panel_deflate": 0, "panel_gram": 0,
+                  "panel_step": sum(auto[r["k"]] for r in grid
+                                    if r["impl"] == "blocked")
+                  + sum(math.ceil(r["k"] / r["panel"]) for r in width),
+                  "panel_coeff": par, "panel_apply": par,
+                  "sketch_accum": len(grid) + len(width)},
+                 len(grid) + len(width))
 
     # ------------------------------------ 8. times at the main path shapes
     dtype, esize = torch.float64, 8
@@ -838,6 +984,38 @@ def main() -> int:
         plain_reps=3)
     del R1, R, tsolve_main_f64
 
+    # The CGS kernels of Table 3 at phase 2's shapes; launches from the
+    # bench phase's Table 3 run.  The library pair is two DGEMMs.
+    q = torch.linalg.qr(randn((l, MAIN_K), dtype)).Q.contiguous()
+    qp = q[:, :b].contiguous()
+    z = randn((l, n), dtype)
+
+    def library_pair(basis):
+        def pair():
+            w = basis.mH @ z
+            return torch.addmm(z, basis, w, alpha=-1)
+        return pair
+
+    # W and O (2 l k n each); bytes: Q, Z in, O out (the k x n workspace
+    # is the kernel's own traffic, not the function's).
+    proj = timed(
+        "project_out", "src/repro_torch/csrc/cgs.cu",
+        "src/repro/kernels/cgs/kernel.py:45",
+        qr_launches["project_out"], bench_err_f64["project_out"],
+        lambda: project_out(q, z), lambda: project_out_ref(q, z),
+        library_pair(q), 4.0 * l * MAIN_K * n,
+        esize * (l * MAIN_K + 2 * l * n), {"l": l, "k": MAIN_K, "n": n})
+    # W and O (2 l b n each); bytes: Q_p, Z in, O, W out.
+    deflate = timed(
+        "panel_deflate", "src/repro_torch/csrc/panel_step.cu",
+        "src/repro/kernels/cgs/kernel.py:74",
+        qr_launches["panel_deflate"], bench_err_f64["panel_deflate"],
+        lambda: panel_deflate(qp, z), lambda: panel_deflate_ref(qp, z),
+        library_pair(qp), 4.0 * l * b * n,
+        esize * (l * b + 2 * l * n + b * n), shape)
+    del q, qp, z
+    torch.cuda.empty_cache()
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -855,7 +1033,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
-                      trisolve]})
+                      trisolve, proj, deflate]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

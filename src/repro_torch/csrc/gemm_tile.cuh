@@ -1,12 +1,12 @@
 // Register-tiled GEMM step shared by the sketch kernels (sketch_accum.cu,
-// sketch_matmul.cu): one CTA of kTX x kTY threads owns a BM x BN output
-// tile, each thread a TM x TN micro-tile of rows row0 + ty + kTY*i and
-// columns col0 + tx + kTX*j.
+// sketch_matmul.cu) and project_out (cgs.cu): one CTA of kTX x kTY
+// threads owns a BM x BN output tile, each thread a TM x TN micro-tile of
+// rows row0 + ty + kTY*i and columns col0 + tx + kTX*j.
 //
 // `gemm_tile_mac` adds x[rows, kb:ke] @ a[kb:ke, cols] into the thread's
 // register tile, walking k in order through one shared-memory stage of kBK
-// rows at a time.  Ragged rows, columns and k are loaded as zeros, which
-// add exactly.  The association is fixed by the caller: sketch_accum sums
+// rows at a time; `gemm_stage_mac` is the product over one loaded stage.
+// Ragged rows, columns and k are loaded as zeros, which add exactly.  The association is fixed by the caller: sketch_accum sums
 // each 128-row block from zero and adds it to its running tile;
 // sketch_matmul runs one sum over all of m.
 #pragma once
@@ -39,16 +39,34 @@ template <class T> struct GemmSmem {
   T as[kGemmBK][GemmShape<T>::BN];
 };
 
+// acc += xs @ as over one loaded stage, k in order.
+template <class T>
+__device__ __forceinline__ void gemm_stage_mac(
+    T (&acc)[GemmShape<T>::TM][GemmShape<T>::TN], const GemmSmem<T>& sm) {
+  constexpr int TM = GemmShape<T>::TM, TN = GemmShape<T>::TN;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int kk = 0; kk < kGemmBK; ++kk) {
+    T xr[TM], ar[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) xr[i] = sm.xs[kk][ty + kGemmTY * i];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) ar[j] = sm.as[kk][tx + kGemmTX * j];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = madd(xr[i], ar[j], acc[i][j]);
+  }
+}
+
 template <class T>
 __device__ __forceinline__ void gemm_tile_mac(
     const T* __restrict__ x, const T* __restrict__ a, int64_t l, int64_t m,
     int64_t n, int64_t row0, int64_t col0, int64_t kb, int64_t ke,
     T (&acc)[GemmShape<T>::TM][GemmShape<T>::TN], GemmSmem<T>& sm) {
-  constexpr int TM = GemmShape<T>::TM, TN = GemmShape<T>::TN;
   constexpr int BM = GemmShape<T>::BM, BN = GemmShape<T>::BN;
   constexpr int kThreads = kGemmTX * kGemmTY;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kGemmTX + tx;
+  const int tid = threadIdx.y * kGemmTX + threadIdx.x;
   for (int64_t k0 = kb; k0 < ke; k0 += kGemmBK) {
     for (int e = tid; e < BM * kGemmBK; e += kThreads) {
       const int r = e / kGemmBK, kk = e % kGemmBK;
@@ -61,18 +79,7 @@ __device__ __forceinline__ void gemm_tile_mac(
       sm.as[kk][c] = (gk < ke && gc < n) ? a[gk * n + gc] : T{};
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK; ++kk) {
-      T xr[TM], ar[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) xr[i] = sm.xs[kk][ty + kGemmTY * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) ar[j] = sm.as[kk][tx + kGemmTX * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = madd(xr[i], ar[j], acc[i][j]);
-    }
+    gemm_stage_mac<T>(acc, sm);
     __syncthreads();
   }
 }

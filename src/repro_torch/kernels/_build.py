@@ -56,6 +56,10 @@ _SIGNATURES = {
                         _P],
     # dtype, r1, r2, t, k, n, stream
     "repro_tsolve": [_I, _P, _P, _P, _I64, _I64, _P],
+    # dtype, q, z, w (workspace), o, l, k, n, stream
+    "repro_project_out": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # dtype, qp, z, o, w, l, b, n, stream
+    "repro_panel_deflate": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

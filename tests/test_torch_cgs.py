@@ -1,0 +1,226 @@
+"""The port's Table 3 slice against the JAX reference, on the CPU: the CGS
+kernels ``project_out`` and ``panel_deflate``, the split panel loop
+``split_blocked_qr``, and the ``bench_qr`` module.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+side runs its Pallas kernels in interpret mode (its complex types go to
+its jnp oracle), as tests/test_kernels.py runs them.  Inputs are made with
+a seeded numpy generator and cross as numpy arrays.
+"""
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.benchmarks import bench_qr  # noqa: E402
+from repro_torch.configs import SMALL_GRID  # noqa: E402
+from repro_torch.kernels import panel_deflate, project_out  # noqa: E402
+
+DTYPES = ["float32", "float64", "complex64", "complex128"]
+
+
+def _t(x):
+    """numpy -> torch on the CPU, dtype kept."""
+    return interop.to_torch(x, device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _x64_scope():
+    """f64 for this module only, restored afterwards."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+def _rand(rng, shape, dtype):
+    dt = np.dtype(dtype)
+    if dt.kind == "c":
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(dt)
+    return rng.standard_normal(shape).astype(dt)
+
+
+def _orthonormal(rng, l, k, dtype):
+    return np.linalg.qr(_rand(rng, (l, k), dtype))[0].astype(dtype)
+
+
+def _tol(dtype) -> float:
+    return 1e-5 if dtype in ("float32", "complex64") else 1e-12
+
+
+def _assert_close(got, want, rtol):
+    """Agreement relative to the largest entry of ``want``."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(interop.to_numpy(got), want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+# ------------------------------------------------------------ the kernels
+
+@pytest.mark.parametrize("l,k,n", [(33, 1, 129), (70, 17, 200),
+                                   (200, 150, 130)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_project_out_matches_jax(l, k, n, dtype):
+    """Ragged shapes (n not a multiple of the reference's 128-column slab,
+    l not a multiple of 32), k from 1 to 150: 1e-5 (single) / 1e-12
+    (double) of the largest entry."""
+    from repro.kernels import project_out as jax_project_out
+    rng = np.random.default_rng(40)
+    q, z = _orthonormal(rng, l, k, dtype), _rand(rng, (l, n), dtype)
+    want = jax_project_out(jnp.asarray(q), jnp.asarray(z))
+    got = project_out(_t(q), _t(z))
+    assert got.dtype == _t(z).dtype and tuple(got.shape) == (l, n)
+    _assert_close(got, want, _tol(dtype))
+
+
+@pytest.mark.parametrize("b", [1, 16, 32, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_deflate_matches_jax(b, dtype):
+    """Both outputs, ``Z - Q_p W`` and ``W = Q_p^H Z``, at l=100, n=300."""
+    from repro.kernels import panel_deflate as jax_panel_deflate
+    rng = np.random.default_rng(41)
+    q, z = _orthonormal(rng, 100, b, dtype), _rand(rng, (100, 300), dtype)
+    want_o, want_w = jax_panel_deflate(jnp.asarray(q), jnp.asarray(z))
+    got_o, got_w = panel_deflate(_t(q), _t(z))
+    assert tuple(got_w.shape) == (b, 300) and got_w.dtype == _t(z).dtype
+    _assert_close(got_o, want_o, _tol(dtype))
+    _assert_close(got_w, want_w, _tol(dtype))
+
+
+def test_cgs_ops_promote_and_validate():
+    q = torch.linalg.qr(torch.randn(20, 4, dtype=torch.float64)).Q
+    z = torch.randn(20, 7, dtype=torch.float32)
+    assert project_out(q, z).dtype == torch.float64
+    o, w = panel_deflate(q, z)
+    assert o.dtype == w.dtype == torch.float64
+    assert float((q.mH @ o).abs().max()) < 1e-12
+    with pytest.raises(ValueError, match=r"q rows \(19\) must match z rows "
+                                         r"\(20\)"):
+        project_out(q[:19], z)
+    with pytest.raises(ValueError, match="must share one device"):
+        panel_deflate(q, z.to("meta"))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    from repro_torch.kernels.cgs.kernel import DEFLATE_LAUNCHES, LAUNCHES
+    before = (LAUNCHES.count, DEFLATE_LAUNCHES.count)
+    project_out(torch.eye(5, 2), torch.ones(5, 3))
+    panel_deflate(torch.eye(5, 2), torch.ones(5, 3))
+    assert (LAUNCHES.count, DEFLATE_LAUNCHES.count) == before
+
+
+@pytest.mark.parametrize("call", ["project_out", "panel_deflate"])
+def test_cgs_ops_raise_off_the_cpu_without_a_card(call):
+    """A tensor that is not on the CPU goes to the kernel, never to the
+    plain version: without a card (meta tensors here) the kernel wrapper
+    raises, and the raw wrappers refuse CPU tensors."""
+    from repro_torch.kernels.cgs.kernel import (panel_deflate_kernel,
+                                                project_out_kernel)
+    op, raw = {"project_out": (project_out, project_out_kernel),
+               "panel_deflate": (panel_deflate, panel_deflate_kernel)}[call]
+    with pytest.raises(ValueError, match="CUDA"):
+        op(torch.ones(8, 2, device="meta"), torch.ones(8, 3, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        raw(torch.ones(8, 2), torch.ones(8, 3))
+
+
+# ------------------------------------------------------- split panel loop
+
+def _sketch_like(rng, l, n):
+    """Column norms spread log-uniformly over two decades: greedy pivot
+    choices are separated by far more than the two libraries' rounding."""
+    return rng.standard_normal((l, n)) * np.logspace(0, 2, n)[rng.permutation(n)]
+
+
+@pytest.mark.parametrize("k,panel", [(20, 8), (24, 24)])
+def test_split_blocked_qr_matches_jax(k, panel):
+    """The split panel_gram + Cholesky + panel_deflate loop against the
+    reference's (real f64, with a remainder panel at k=20, panel=8):
+    equal pivots in order, Q and R within 1e-9 of their largest entry."""
+    from benchmarks.bench_qr import split_blocked_qr as jax_split
+    Y = _sketch_like(np.random.default_rng(42), 48, 300)
+    jq, jr, jp = jax_split(jnp.asarray(Y), k, panel)
+    q, r, p = bench_qr.split_blocked_qr(_t(Y), k, panel)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    _assert_close(q, jq, 1e-9)
+    _assert_close(r, jr, 1e-9)
+    eye = np.eye(k)
+    np.testing.assert_allclose((q.mH @ q).numpy(), eye, atol=1e-12)
+
+
+def test_split_blocked_qr_matches_the_fused_engine():
+    """The split loop and the fused ``blocked_pivoted_qr`` pick the same
+    pivots and agree in Q on a complex sketch (the split loop takes .mH
+    everywhere)."""
+    from repro_torch.core import blocked_pivoted_qr
+    rng = np.random.default_rng(43)
+    Y = _t((_sketch_like(rng, 40, 200)
+            + 1j * _sketch_like(rng, 40, 200)).astype(np.complex128))
+    q, r, p = bench_qr.split_blocked_qr(Y, 16, 8)
+    fused = blocked_pivoted_qr(Y, 16, panel=8)
+    assert torch.equal(p, fused.piv)
+    _assert_close(q, interop.to_numpy(fused.Q), 1e-9)
+    _assert_close(r, interop.to_numpy(fused.R), 1e-9)
+
+
+def test_fused_flops_counts_each_panel():
+    l, n, k = 256, 4096, 128
+    one = bench_qr.fused_flops(l, n, k, 128)
+    want = (2 * l * n + 2 * l * k * n + 2 * (3 * l * k * k + k ** 3 / 3)
+            + 4 * l * k * n + 2 * l * n)
+    assert one == pytest.approx(want)
+    # Two panels add the re-projection of the second against the first.
+    two = bench_qr.fused_flops(l, n, k, 64)
+    b = 64
+    assert two == pytest.approx(
+        2 * l * n + 2 * l * k * n + 4 * l * b * b
+        + 2 * (2 * (3 * l * b * b + b ** 3 / 3) + 4 * l * b * n + 2 * l * n))
+
+
+# ------------------------------------------------------------ bench module
+
+def test_bench_qr_runs_one_row_on_the_cpu():
+    rows = bench_qr.run(SMALL_GRID[:1], torch.float32, device="cpu")
+    assert len(rows) == 1 and rows[0]["device"] == "cpu"
+    row = rows[0]
+    cols = ["cgs2_pivoted_s", "blocked_b16_s", "blocked_b32_s",
+            "blocked_b64_s", "householder_panel_s", "choleskyqr2_panel_s",
+            "cuda_deflate_s", "cuda_panel_deflate_s"]
+    assert [c for c in row if c.endswith("_s")] == cols
+    assert all(math.isfinite(row[c]) and row[c] > 0 for c in cols), row
+    best = min(row[f"blocked_b{b}_s"] for b in bench_qr.PANEL_SWEEP)
+    assert row["blocked_speedup"] == pytest.approx(row["cgs2_pivoted_s"]
+                                                   / best)
+
+
+def test_bench_qr_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        bench_qr.run(SMALL_GRID[:1], torch.float32)
+
+
+def test_bench_qr_cli_prints_and_records_rows(tmp_path, capsys):
+    path = tmp_path / "rows.json"
+    bench_qr.main(["--device", "cpu", "--panels", "32", "--json", str(path)])
+    out = capsys.readouterr().out
+    assert out.startswith("# Table 3 analogue")
+    assert ("k,l,n,dtype,device,cgs2_pivoted_s,blocked_b32_s,"
+            "blocked_speedup,householder_panel_s,choleskyqr2_panel_s,"
+            "cuda_deflate_s,cuda_panel_deflate_s") in out
+    assert "# Acceptance: blocked vs cgs2, l=256 n=4096 k=128 f32" in out
+    assert "fused_panel_step,256,4096,128,32,cpu," in out
+    rows = json.loads(path.read_text())
+    assert len(rows) == len(SMALL_GRID) + 2
+    assert [r["k"] for r in rows[:len(SMALL_GRID)]] == \
+        [c.k for c in SMALL_GRID]
+    assert rows[-2]["panel"] == 32 and "cgs2_s" in rows[-2]
+    assert rows[-1]["bench"] == "fused_panel_step"
+    assert rows[-1]["flops"] == bench_qr.fused_flops(256, 4096, 128, 32)

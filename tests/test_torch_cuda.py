@@ -16,6 +16,10 @@ import pytest
 import torch
 
 from repro_torch.core import error_bound, expected_sigma_kp1, rid, spectral_error
+from repro_torch.kernels.cgs import panel_deflate, project_out
+from repro_torch.kernels.cgs.kernel import DEFLATE_LAUNCHES
+from repro_torch.kernels.cgs.kernel import LAUNCHES as PROJECT_LAUNCHES
+from repro_torch.kernels.cgs.ref import panel_deflate_ref, project_out_ref
 from repro_torch.kernels.panel_gram import panel_gram
 from repro_torch.kernels.panel_gram.kernel import LAUNCHES as GRAM_LAUNCHES
 from repro_torch.kernels.panel_gram.ref import panel_gram_ref
@@ -322,6 +326,79 @@ def test_cuda_bench_modules_run_one_small_row():
     rows = (bench_sketch.run(SMALL_GRID[:1], torch.float32)
             + bench_tsolve.run(SMALL_GRID[:1], torch.float32)
             + bench_total.run(SMALL_GRID[:1], "srft", torch.complex64))
+    for row in rows:
+        assert row["device"] == "cuda"
+        assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))
+
+
+def _orthonormal(gen, l, k, dtype, dev):
+    return torch.linalg.qr(_randn(gen, (l, k), dtype, dev)).Q.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,k,n", [(8, 1, 5), (70, 33, 150), (130, 64, 257),
+                                   (333, 150, 129), (800, 400, 300),
+                                   (2000, 1000, 700)])
+def test_cuda_project_out_matches_plain(dtype, l, k, n):
+    """One launch per call, ragged l, k and n (Z is never padded), k up to
+    1000 and l up to 2000 (the paper's largest basis): agreement with the
+    plain version relative to its largest entry, and the same bits from a
+    second call (fixed summation order)."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, z = _orthonormal(gen, l, k, dtype, dev), _randn(gen, (l, n), dtype, dev)
+    before = PROJECT_LAUNCHES.count
+    got = project_out(q, z)
+    assert PROJECT_LAUNCHES.count == before + 1
+    assert _rel(got, project_out_ref(q, z)) <= REL_TOL[dtype]
+    assert torch.equal(project_out(q, z), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [16, 32, 64])
+def test_cuda_panel_deflate_matches_plain(dtype, b):
+    """Both outputs, ``Z - Q_p W`` and ``W``, against the plain version;
+    one launch per call, counted apart from panel_step's."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for l, n in [(70, 150), (800, 1037)]:
+        q, z = _orthonormal(gen, l, b, dtype, dev), _randn(gen, (l, n), dtype, dev)
+        before = (DEFLATE_LAUNCHES.count, PANEL_LAUNCHES.count)
+        o, w = panel_deflate(q, z)
+        assert (DEFLATE_LAUNCHES.count, PANEL_LAUNCHES.count) == \
+            (before[0] + 1, before[1])
+        want_o, want_w = panel_deflate_ref(q, z)
+        assert _rel(o, want_o) <= REL_TOL[dtype]
+        assert _rel(w, want_w) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_cgs_kernels_refuse_other_dtypes_and_wide_panels():
+    dev = _device()
+    h = torch.ones(8, 2, dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):
+        project_out(h, torch.ones(8, 4, dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError, match="b <= 64, got b=65"):
+        panel_deflate(torch.ones(80, 65, device=dev), torch.ones(80, 3, device=dev))
+
+
+@pytest.mark.cuda
+def test_cuda_bench_qr_and_error_run_one_small_row():
+    """Table 3 at SMALL_GRID[0]: one project_out and one panel_deflate
+    launch per call of their columns (2 warm-up + 5 timed); Table 5 at
+    SMALL_GRID[0] within the eq. (3) bound."""
+    from repro_torch.benchmarks import bench_error, bench_qr
+    from repro_torch.benchmarks.common import ITERS, WARMUP
+    from repro_torch.configs import SMALL_GRID
+    _device()
+    before = (PROJECT_LAUNCHES.count, DEFLATE_LAUNCHES.count)
+    rows = bench_qr.run(SMALL_GRID[:1], torch.float32)
+    assert (PROJECT_LAUNCHES.count - before[0],
+            DEFLATE_LAUNCHES.count - before[1]) == (WARMUP + ITERS,) * 2
+    rows += bench_error.run(SMALL_GRID[:1])
+    assert rows[1]["within_bound"]
     for row in rows:
         assert row["device"] == "cuda"
         assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))
