@@ -15,7 +15,10 @@ in order, printing one JSON line per phase:
                  the real types; tsolve on a pivoted-QR R1 and, by its
                  backward error, on the bench's ill-conditioned R1;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
-                 n=2^14, both outputs of panel_deflate;
+                 n=2^14, both outputs of panel_deflate; flash at granite's
+                 prefill (32 heads, hd 64, S=T=4000, causal) and danube's
+                 (32 heads, hd 80, S=T=6144, window 4096), a non-causal
+                 and a ragged S != T case, q f32 with k/v bf16 and all f32;
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
@@ -41,8 +44,24 @@ in order, printing one JSON line per phase:
                  grid on a one-rank NCCL group, with the launches of
                  project_out, panel_deflate, panel_gram and panel_step
                  per call against the counts the code implies;
+  serve       -- granite-3-2b at full width (40 layers, d_model 2048,
+                 random weights from a seed) through ``ServeEngine(max_batch
+                 =4, max_len=4608)``: 6 short prompts and prompts of 3000
+                 and 4000 tokens, 16 new tokens each; flash launched once a
+                 layer for each long prompt (80); tokens per second, the
+                 4000-token prefill, the mean decode step, peak memory; then
+                 that prompt's one-shot prefill against ``prefill_chunk`` in
+                 512-token chunks (dense, no flash) to a bf16 tolerance,
+                 and one prefill and one decode step under
+                 ``torch.profiler``;
+  swa         -- h2o-danube-1.8b at full width, depth cut to 4 layers: a
+                 6144-token prefill (window 4096: skipped kv blocks and the
+                 ring-buffer fill; 4 flash launches), 16 decode steps on the
+                 ring buffer, the first layer's attention against ref.py;
   8. times    -- each kernel's time at the main path's shapes beside its
-                 bound, its plain version's time and the library call's;
+                 bound, its plain version's time and the library call's
+                 (flash at granite's serve shape, beside
+                 ``F.scaled_dot_product_attention``);
   9. trace    -- the main path once more: the sketch and the rest timed
                  apart, then one ``rid`` under ``torch.profiler`` (device
                  time by kernel, device idle share).
@@ -101,6 +120,32 @@ PEAK_NAME = "FP64 tensor 67 TFLOP/s"
 # that grows with the reduction length, far inside these bounds.
 REL_TOL = {"float32": 1e-4, "complex64": 1e-4,
            "float64": 1e-10, "complex128": 1e-10}
+# H100 SXM float32 rate outside the tensor cores, the flash kernel's FFMA
+# (its bound), and the bf16 tensor-core rate (the bound of a later wgmma
+# redesign, reported beside it).
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# Flash kernel vs plain version, relative to the largest plain entry: f32
+# sums in another order (online softmax in 64-key blocks against a dense
+# softmax).
+FLASH_TOL = 1e-5
+# (case, B*H, S, T, hd, causal, window): the prefill shapes of granite-3-2b
+# and h2o-danube-1.8b, a non-causal and a ragged case.
+FLASH_CASES = (("granite prefill", 32, 4000, 4000, 64, True, None),
+               ("danube prefill", 32, 6144, 6144, 80, True, 4096),
+               ("non-causal", 32, 1024, 1024, 64, False, None),
+               ("ragged", 32, 1500, 3000, 80, True, None))
+# The serve phase: granite-3-2b's engine, its long prompts and the chunked
+# cross-check.  Tolerance of the one-shot (flash) against the chunked
+# (dense) prefill's last-token logits, both in bf16 compute through 40
+# layers: relative l2 and max |diff| over max |logit|.  The two paths round
+# in bf16 at different places (bf16 scores on the dense path, f32 q on the
+# flash path); their gap is of the order of bf16 against f32 compute,
+# which the phase also reports.
+SERVE_BATCH, SERVE_LEN, SERVE_LONG, SERVE_NEW = 4, 4608, (3000, 4000), 16
+CHUNK = 512
+CHUNK_TOL = {"rel_l2": 0.05, "max_abs_over_max": 0.1}
+SWA_LAYERS, SWA_PROMPT, SWA_STEPS = 4, 6144, 16
 
 
 class PhaseError(RuntimeError):
@@ -182,6 +227,21 @@ def main() -> int:
         from repro_torch.benchmarks.bench_tsolve import (backward_error,
                                                          bench_system)
         from repro_torch.benchmarks.common import ITERS, WARMUP
+        import numpy as np
+        import torch.nn.functional as F
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.flash.kernel import (
+            LAUNCHES as FLASH_LAUNCHES)
+        from repro_torch.kernels.flash.kernel import flash_attention_kernel
+        from repro_torch.kernels.flash.ref import flash_ref
+        from repro_torch.models import (decode_step, init_caches, init_params,
+                                        prefill, prefill_chunk)
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.models.norms import rmsnorm
+        from repro_torch.models.rope import apply_rope, rope_cos_sin
+        from repro_torch.models.transformer import embed_tokens
+        from repro_torch.obs import Tracer, tracing
+        from repro_torch.serving import GenerationRequest, ServeEngine
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -487,6 +547,56 @@ def main() -> int:
         del q, qp, z, got, want, again
         torch.cuda.empty_cache()
 
+    # The flash kernel of the LM stack's prefill against its plain version.
+    # q is drawn already scaled, as the op hands it to the kernel.
+    def live_pairs(s, t, causal, window) -> int:
+        """(q, k) pairs the mask keeps: the work these inputs need."""
+        i = np.arange(s)
+        hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+        lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, int)
+        return int(np.maximum(hi - lo + 1, 0).sum())
+
+    def live_block_share(s, t, causal, window, blk=64) -> float:
+        """Share of (q block, kv block) pairs the kernel loads."""
+        nq, nk = -(-s // blk), -(-t // blk)
+        live = 0
+        for qb in range(nq):
+            q0, q_end = qb * blk, qb * blk + blk - 1
+            for kb in range(nk):
+                k0 = kb * blk
+                live += not ((causal and k0 > q_end)
+                             or (window and k0 + blk - 1 <= q0 - window))
+        return live / (nq * nk)
+
+    flash_err = None            # max abs error at granite's shape, f32/bf16
+    for case, bh, s, t, hd, causal, window in FLASH_CASES:
+        for qdt, kvdt in ((torch.float32, torch.bfloat16),
+                          (torch.float32, torch.float32)):
+            q = randn((bh, s, hd), torch.float32) * hd ** -0.5
+            k = randn((bh, t, hd), torch.float32).to(kvdt)
+            v = randn((bh, t, hd), torch.float32).to(kvdt)
+            before = FLASH_LAUNCHES.count
+            got = flash_attention_kernel(q, k, v, causal=causal,
+                                         window=window)
+            launches = FLASH_LAUNCHES.count - before
+            want = flash_ref(q, k, v, causal=causal, window=window)
+            err, err_abs = rel_err(got, want), float((got - want).abs().max())
+            emit({"phase": "kernels", "kernel": "flash", "case": case,
+                  "bh": bh, "s": s, "t": t, "hd": hd, "causal": causal,
+                  "window": window, "q_dtype": dname(qdt),
+                  "kv_dtype": dname(kvdt), "launches_per_call": launches,
+                  "live_pairs": bh * live_pairs(s, t, causal, window),
+                  "live_block_share": live_block_share(s, t, causal, window),
+                  "max_abs_err": err_abs, "rel_err": err,
+                  "rel_tol": FLASH_TOL})
+            check(err <= FLASH_TOL, f"flash {case} {dname(kvdt)}: rel err "
+                  f"{err} > {FLASH_TOL}")
+            check(launches == 1, f"flash {case}: {launches} launches")
+            if case == "granite prefill" and kvdt == torch.bfloat16:
+                flash_err = err_abs
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+
     # ----------------------------------------- 3. main path, f64 gaussian
     def lowrank(m, n, k, dtype):
         return randn((m, k), dtype) @ randn((k, n), dtype)
@@ -501,7 +611,8 @@ def main() -> int:
                       "sketch_accum": ACCUM_LAUNCHES,
                       "sketch_matmul": MATMUL_LAUNCHES,
                       "fwht": FWHT_LAUNCHES,
-                      "tsolve": TSOLVE_LAUNCHES}
+                      "tsolve": TSOLVE_LAUNCHES,
+                      "flash": FLASH_LAUNCHES}
 
     def reset_counts():
         for ctr in split_counters.values():
@@ -866,6 +977,176 @@ def main() -> int:
                   "sketch_accum": len(grid) + len(width)},
                  len(grid) + len(width))
 
+    # ------------- serve: granite-3-2b at full width through ServeEngine
+    cfg = get_config("granite-3-2b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = []
+    for _ in range(6):                  # as launch/serve.py draws them
+        plen = int(rng.integers(4, 12))
+        prompts.append(rng.integers(0, cfg.vocab_size, plen).astype(np.int32))
+    prompts += [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in SERVE_LONG]
+    eng = ServeEngine(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN)
+    reqs = [GenerationRequest(request_id=i, prompt=p,
+                              max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tracing(tracer):
+        eng.run()
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = read_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    spans = {}
+    for sp in tracer.spans:
+        spans.setdefault(sp.name, []).append(sp)
+    long_prefill = [sp.dur for sp in spans.get("serve.prefill", [])
+                    if sp.attrs.get("prompt_tokens") == SERVE_LONG[-1]]
+    decode_s = [sp.dur for sp in spans.get("serve.decode", [])]
+    tokens = sum(len(r.output) for r in reqs)
+    n_long = sum(len(p) > attn_mod.BLOCKWISE_THRESHOLD for p in prompts)
+    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, "init_s": init_s, "wall_s": serve_wall,
+          "generated_tokens": tokens, "tokens_per_s": tokens / serve_wall,
+          "prefill_4000_s": long_prefill[0] if long_prefill else None,
+          "decode_steps": len(decode_s),
+          "decode_step_mean_s": (sum(decode_s) / len(decode_s)
+                                 if decode_s else None),
+          "max_memory_allocated": serve_peak, "launches": serve_launches,
+          "statuses": sorted({r.status for r in reqs})})
+    check(all(r.status == "done" and len(r.output) == SERVE_NEW
+              for r in reqs), f"serve: {[(r.status, len(r.output)) for r in reqs]}")
+    check(serve_launches["flash"] == n_long * cfg.n_layers == 80,
+          f"serve: flash launched {serve_launches['flash']} times, expected "
+          f"{n_long} x {cfg.n_layers}")
+    check(all(v == 0 for name, v in serve_launches.items() if name != "flash"),
+          f"serve: other kernels launched {serve_launches}")
+    check(len(long_prefill) == 1, "serve: no prefill span of the long prompt")
+    del eng, reqs, tracer, spans
+    torch.cuda.empty_cache()
+
+    # The long prompt once more: one-shot prefill (flash) against the
+    # chunked prefill (attention_extend, dense) at full width.
+    toks = torch.as_tensor(prompts[-1], dtype=torch.int64, device=dev)[None]
+    lg_one, caches = prefill(model, cfg, toks, max_len=SERVE_LEN)
+    nxt = torch.argmax(lg_one[:, -1], dim=-1)[:, None]
+    lg_dec, _ = decode_step(model, cfg, nxt, toks.shape[1], caches)
+    del caches
+    # Where a prefill's and a decode step's time goes (batch 4, the
+    # engine's shared cache of max_len).
+    prefill_trace = profiled(lambda: prefill(model, cfg, toks,
+                                             max_len=SERVE_LEN))
+    batch = init_caches(cfg, SERVE_BATCH, SERVE_LEN, dev)
+    step_toks = nxt.expand(SERVE_BATCH, 1).contiguous()
+    step_pos = torch.full((SERVE_BATCH,), toks.shape[1], device=dev)
+    decode_step(model, cfg, step_toks, step_pos, batch)
+    decode_trace = profiled(lambda: decode_step(model, cfg, step_toks,
+                                                step_pos, batch))
+    emit({"phase": "serve", "check": "trace", "prompt_tokens": toks.shape[1],
+          "prefill": prefill_trace, "decode_step_batch": SERVE_BATCH,
+          "decode_step": decode_trace})
+    del batch
+    chunked = init_caches(cfg, 1, SERVE_LEN, dev)
+    reset_counts()
+    for p0 in range(0, toks.shape[1], CHUNK):
+        lg_chunk, chunked = prefill_chunk(model, cfg, toks[:, p0:p0 + CHUNK],
+                                          p0, chunked)
+    torch.cuda.synchronize()
+    chunk_launches = read_counts()["flash"]
+    del chunked
+    torch.cuda.empty_cache()
+    lg_f32, _ = prefill(model, cfg.replace(dtype="float32"), toks,
+                        max_len=SERVE_LEN)
+    a, b, c = (x.float().flatten() for x in (lg_one, lg_chunk, lg_f32))
+    cross = {"rel_l2": float((a - b).norm() / a.norm()),
+             "max_abs_over_max": float((a - b).abs().max() / a.abs().max())}
+    emit({"phase": "serve", "check": "one-shot (flash) vs chunked prefill",
+          "prompt_tokens": toks.shape[1], "chunk": CHUNK,
+          "chunk_flash_launches": chunk_launches, **cross, "tol": CHUNK_TOL,
+          "max_abs_logit": float(a.abs().max()),
+          "argmax_equal": bool(a.argmax() == b.argmax()),
+          "bf16_vs_f32_compute_rel_l2": float((a - c).norm() / c.norm()),
+          "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()
+                         and torch.isfinite(lg_dec).all())})
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()
+               and torch.isfinite(lg_dec).all()), "serve: logits not finite")
+    check(chunk_launches == 0, "serve: chunked prefill launched flash")
+    check(all(cross[key] <= CHUNK_TOL[key] for key in CHUNK_TOL),
+          f"serve: one-shot vs chunked {cross} beyond {CHUNK_TOL}")
+    del model, lg_one, lg_chunk, lg_f32, lg_dec, toks
+    torch.cuda.empty_cache()
+
+    # ------------- swa: h2o-danube-1.8b at full width, depth cut to 4
+    dcfg = get_config("h2o-danube-1.8b").replace(n_layers=SWA_LAYERS)
+    dmodel = init_params(SEED, dcfg, device=dev)
+    toks = torch.randint(0, dcfg.vocab_size, (1, SWA_PROMPT), generator=gen,
+                         device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, caches = prefill(dmodel, dcfg, toks, max_len=SWA_PROMPT + SWA_STEPS)
+    torch.cuda.synchronize()
+    swa_prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(lg).all())
+    for i in range(SWA_STEPS):
+        nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        lg, caches = decode_step(dmodel, dcfg, nxt, SWA_PROMPT + i, caches)
+        finite = finite and bool(torch.isfinite(lg).all())
+    swa_launches = read_counts()
+    # The first layer's attention at the prompt: the kernel (through the
+    # model's blockwise path) against ref.py on the same q, k, v.
+    blk = dmodel.blocks[0]
+    h = rmsnorm(blk.ln1, embed_tokens(dmodel, dcfg, toks), dcfg.norm_eps)
+    q, k, v = attn_mod._project_qkv(blk.mixer, dcfg, h, h)
+    pos = torch.arange(SWA_PROMPT, device=dev)[None]
+    cos, sin = rope_cos_sin(pos, dcfg.hd, dcfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    g = dcfg.n_heads // dcfg.n_kv_heads
+    kr, vr = (torch.repeat_interleave(x, g, dim=2) for x in (k, v))
+    got = attn_mod._attention_blockwise(q, kr, vr, causal=True,
+                                        window=dcfg.sliding_window)
+    B, S, H, hd = q.shape
+    tohm = lambda x: x.transpose(1, 2).reshape(B * H, S, hd)  # noqa: E731
+    want = flash_ref(tohm(q.float()) * torch.tensor(hd ** -0.5, device=dev),
+                     tohm(kr), tohm(vr), causal=True,
+                     window=dcfg.sliding_window)
+    want = want.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
+    swa_err = rel_err(got, want)
+    emit({"phase": "swa", "arch": dcfg.name, "n_layers": SWA_LAYERS,
+          "reduced": f"depth cut from 24 to {SWA_LAYERS} layers (run time)",
+          "d_model": dcfg.d_model, "hd": dcfg.hd,
+          "window": dcfg.sliding_window, "prompt_tokens": SWA_PROMPT,
+          "ring_buffer_len": caches["self"][0].k.shape[1],
+          "decode_steps": SWA_STEPS, "prefill_s": swa_prefill_s,
+          "launches": swa_launches, "finite": finite,
+          "layer0_attention_rel_err": swa_err, "rel_tol": FLASH_TOL,
+          "live_block_share": live_block_share(SWA_PROMPT, SWA_PROMPT, True,
+                                               dcfg.sliding_window)})
+    check(finite, "swa: logits not finite")
+    check(swa_launches["flash"] == SWA_LAYERS,
+          f"swa: flash launched {swa_launches['flash']} times, expected "
+          f"{SWA_LAYERS}")
+    check(caches["self"][0].k.shape[1] == dcfg.sliding_window,
+          "swa: the cache is not the window's ring buffer")
+    check(swa_err <= FLASH_TOL, f"swa: layer-0 attention rel err {swa_err}")
+    del dmodel, caches, lg, toks, h, q, k, v, kr, vr, got, want
+    torch.cuda.empty_cache()
+
     # ------------------------------------ 8. times at the main path shapes
     dtype, esize = torch.float64, 8
     l, m, n, b = 2 * MAIN_K, MAIN_M, MAIN_N, PANEL
@@ -1016,6 +1297,42 @@ def main() -> int:
     del q, qp, z
     torch.cuda.empty_cache()
 
+    # flash at granite's serve shape (the 4000-token prefill: 32 heads, hd
+    # 64, causal, q f32 and k/v bf16 as the model passes them); launches
+    # from the serve phase.  Operations: 4 hd per live (q, k) pair (q k^T
+    # and p v); bytes: q, k, v read once, o written once.  The library call
+    # is scaled_dot_product_attention on the same inputs in f32 (one dtype),
+    # with q already scaled.
+    bh, S, hd = 32, SERVE_LONG[-1], 64
+    q = randn((bh, S, hd), torch.float32) * hd ** -0.5
+    k = randn((bh, S, hd), torch.float32).to(torch.bfloat16)
+    v = randn((bh, S, hd), torch.float32).to(torch.bfloat16)
+    k4, v4 = (x.float()[None] for x in (k, v))
+    pairs = bh * live_pairs(S, S, True, None)
+    flash_flops = 4.0 * hd * pairs
+    flash_bytes = bh * S * hd * (4 + 2 + 2 + 4)
+    t_flop, t_byte = flash_flops / PEAK_F32_FLOPS, flash_bytes / HBM_BYTES_PER_S
+    flash = {"name": "flash", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash.cu",
+             "replaces": "src/repro/kernels/flash/kernel.py:86",
+             "launches": serve_launches["flash"], "max_abs_err": flash_err,
+             "ms": cuda_ms(lambda: flash_attention_kernel(q, k, v), 20),
+             "plain_ms": cuda_ms(lambda: flash_ref(q, k, v), 3),
+             "bound_ms": 1e3 * max(t_flop, t_byte),
+             "bound_by": "operations" if t_flop >= t_byte else "bytes",
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 q[None], k4, v4, is_causal=True, scale=1.0), 20)}
+    emit({"phase": "times", "kernel": "flash", "bh": bh, "s": S, "t": S,
+          "hd": hd, "causal": True, "q_dtype": "float32",
+          "kv_dtype": "bfloat16", "live_pairs": pairs, "flops": flash_flops,
+          "bytes": flash_bytes, "peak": "FP32 67 TFLOP/s",
+          "bf16_tensor_bound_ms": 1e3 * max(flash_flops / PEAK_BF16_FLOPS,
+                                            t_byte),
+          **{key: flash[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}})
+    del q, k, v, k4, v4
+    torch.cuda.empty_cache()
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -1033,7 +1350,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
-                      trisolve, proj, deflate]})
+                      trisolve, proj, deflate, flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

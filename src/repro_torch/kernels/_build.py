@@ -60,6 +60,9 @@ _SIGNATURES = {
     "repro_project_out": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     # dtype, qp, z, o, w, l, b, n, stream
     "repro_panel_deflate": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # q dtype, k/v dtype, q, k, v, o, bh, s, t, hd, causal, window, stream
+    "repro_flash_attention": [_I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
+                              _I64, _I, _I64, _P],
 }
 
 _lock = threading.Lock()
@@ -93,19 +96,22 @@ def _digest() -> str:
 
 _TYPE_CODES = {"f": "float32", "d": "float64",
                "N5repro4cplxIfEE": "complex64",
-               "N5repro4cplxIdEE": "complex128"}
+               "N5repro4cplxIdEE": "complex128",
+               "13__nv_bfloat16": "bfloat16"}
+_TYPE_RE = r"N5repro4cplxI[fd]EE|13__nv_bfloat16|f|d"
 
 
 def _short_name(mangled: str) -> str:
     """``panel_sweep_kernel<float64,true,false>`` from the mangled entry
-    name (element type, then any bool template flags)."""
-    m = re.search(r"\d([a-z_]+_kernel)I(f|d|N5repro4cplxI[fd]EE)((?:Lb[01]E)*)E",
-                  mangled)
+    name (element types, then any bool or int template arguments)."""
+    m = re.search(rf"\d([a-z_]+_kernel)I((?:{_TYPE_RE})+)"
+                  r"((?:Lb[01]E|Li\d+E)*)E", mangled)
     if not m:
         return mangled
-    flags = ["true" if f == "1" else "false"
-             for f in re.findall(r"Lb([01])E", m.group(3))]
-    return f"{m.group(1)}<{','.join([_TYPE_CODES[m.group(2)], *flags])}>"
+    types = [_TYPE_CODES[t] for t in re.findall(_TYPE_RE, m.group(2))]
+    args = [{"b0": "false", "b1": "true"}.get(a, a[1:])
+            for a in re.findall(r"L(b[01]|i\d+)E", m.group(3))]
+    return f"{m.group(1)}<{','.join(types + args)}>"
 
 
 def parse_ptxas(log: str) -> list[dict]:

@@ -1,0 +1,19 @@
+"""Runtime observability of the port (counterpart of ``repro.obs``):
+injectable clocks (``obs.clock``), nested spans with device-bracketed
+timing (``obs.trace``), counters/gauges/histograms (``obs.metrics``) and
+the JSONL and Chrome trace exporters (``obs.export``).  The reference's
+``progress``, ``timeline`` and ``telemetry`` (the Prometheus server) come
+later (ROADMAP Queue A item 11)."""
+from .clock import MONOTONIC, Clock, FakeClock, MonotonicClock, now
+from .export import (ChromeTraceExporter, JsonlExporter, exporter_names,
+                     get_exporter, register_exporter)
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .trace import Span, Tracer, current_tracer, deep_tracing, tracing
+
+__all__ = [
+    "Clock", "MonotonicClock", "FakeClock", "MONOTONIC", "now",
+    "Span", "Tracer", "tracing", "current_tracer", "deep_tracing",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "JsonlExporter", "ChromeTraceExporter", "register_exporter",
+    "get_exporter", "exporter_names",
+]

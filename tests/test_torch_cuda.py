@@ -558,3 +558,106 @@ def test_cuda_rid_distributed_across_cards(tmp_path):
             assert float(err) <= error_bound(m, n, k) * float(sigma), (name, impl)
         Q = outs[0][name, "gram"]["Q"]
         assert float((Q.mH @ Q - torch.eye(k, dtype=Q.dtype)).abs().max()) < 1e-10
+
+
+# ------------------------------------------------- flash attention (slice 5)
+
+FLASH_CASES = [  # (BH, S, T, hd, causal, window)
+    (4, 300, 300, 64, True, None),
+    (3, 257, 700, 80, True, None),        # ragged, T > S
+    (3, 400, 400, 80, True, 96),          # window skips blocks at both ends
+    (2, 130, 90, 128, False, None),       # non-causal, S != T
+    (2, 200, 200, 128, True, 64),
+    (2, 100, 100, 8, True, None),         # the reference test's smallest hd
+]
+FLASH_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", FLASH_DTYPES)
+@pytest.mark.parametrize("bh,s,t,hd,causal,window", FLASH_CASES)
+def test_cuda_flash_matches_plain(bh, s, t, hd, causal, window, qdt, kvdt):
+    """The kernel against ``ref.py`` on the same inputs.  Tolerance: 1e-5 of
+    the largest output entry in f32 q (f32 sums in another order), 1e-2 in
+    bf16 q (one rounding of the output to bf16)."""
+    from repro_torch.kernels.flash.kernel import LAUNCHES, flash_attention_kernel
+    from repro_torch.kernels.flash.ref import flash_ref
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(bh * s + hd)
+    q = (torch.randn((bh, s, hd), generator=gen, device=dev) * hd ** -0.5).to(qdt)
+    k = torch.randn((bh, t, hd), generator=gen, device=dev).to(kvdt)
+    v = torch.randn((bh, t, hd), generator=gen, device=dev).to(kvdt)
+    before = LAUNCHES.count
+    got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    assert LAUNCHES.count == before + 1 and got.dtype == qdt
+    want = flash_ref(q, k, v, causal=causal, window=window)
+    tol = 1e-5 if qdt == torch.float32 else 1e-2
+    assert _rel(got.float(), want.float()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_ops_never_reach_the_plain_version(monkeypatch):
+    """Through ``ops`` a CUDA tensor goes to the kernel or raises."""
+    from repro_torch.kernels.flash import ops
+    from repro_torch.kernels.flash.kernel import LAUNCHES
+    dev = _device()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached ref.py")
+
+    monkeypatch.setattr(ops, "flash_ref", refuse)
+    q = torch.randn((1, 70, 4, 80), device=dev)
+    kv = torch.randn((1, 70, 4, 80), device=dev, dtype=torch.bfloat16)
+    before = LAUNCHES.count
+    out = ops.flash_attention(q, kv, kv, causal=True, window=32)
+    assert LAUNCHES.count == before + 1 and out.shape == (1, 70, 320)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.flash_attention(q.half(), kv, kv)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(q[..., :20], kv[..., :20], kv[..., :20])
+
+
+@pytest.mark.cuda
+def test_cuda_serve_path_launches_flash_once_per_layer():
+    """A prompt over the blockwise threshold launches the kernel once per
+    attention layer of its prefill (2 on the SMOKE config), and the
+    engine's greedy tokens equal those of the CPU's plain path."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash.kernel import LAUNCHES
+    from repro_torch.models import init_params, params_from_jax, params_to_numpy
+    from repro_torch.serving import GenerationRequest, ServeEngine
+    dev = _device()
+    cfg = get_smoke_config("granite_3_2b").replace(dtype="float32")
+    model = init_params(0, cfg, device=dev)
+    cpu_model = params_from_jax(params_to_numpy(model), cfg, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 2100)
+    outs = []
+    for m in (model, cpu_model):
+        eng = ServeEngine(cfg, m, max_batch=2, max_len=2112)
+        req = GenerationRequest(request_id=0, prompt=prompt.astype(np.int32),
+                                max_new_tokens=4)
+        eng.submit(req)
+        LAUNCHES.reset()
+        eng.run()
+        outs.append((req.status, req.output, LAUNCHES.count))
+    assert outs[0][2] == cfg.n_layers and outs[1][2] == 0
+    assert outs[0][:2] == outs[1][:2]
+
+
+@pytest.mark.cuda
+def test_cuda_compress_params_runs_the_id_kernels():
+    """The paper's ID inside the LM stack: probing a model's projections on
+    the card runs ``sketch_accum`` and ``panel_step``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import compress_params
+    dev = _device()
+    cfg = get_smoke_config("granite_3_2b")
+    model = init_params(0, cfg, device=dev)
+    ACCUM_LAUNCHES.reset()
+    PANEL_LAUNCHES.reset()
+    _, report = compress_params(1, model, rank=8)
+    assert len(report) == 14
+    assert ACCUM_LAUNCHES.count == 14 and PANEL_LAUNCHES.count >= 14
