@@ -58,10 +58,21 @@ in order, printing one JSON line per phase:
                  6144-token prefill (window 4096: skipped kv blocks and the
                  ring-buffer fill; 4 flash launches), 16 decode steps on the
                  ring buffer, the first layer's attention against ref.py;
+  analysis    -- ``repro_torch.analysis.run_all(device="cuda")`` on a
+                 one-rank NCCL group (what ``python -m repro_torch.analysis``
+                 runs): 0 new findings against the empty baseline, every
+                 control present, big_copy launched on that path; every
+                 production kernel's declared launch (grid, block, dynamic
+                 shared bytes) equal to the C side's and within 232448 B,
+                 big_copy's 64 MiB example over it; then big_copy bit-equal
+                 to big_copy_ref at fitting f32 and c128 shapes, its
+                 example refused as a status, and sketch_accum right
+                 after the refusal held to its plain version;
   8. times    -- each kernel's time at the main path's shapes beside its
                  bound, its plain version's time and the library call's
                  (flash at granite's serve shape, beside
-                 ``F.scaled_dot_product_attention``);
+                 ``F.scaled_dot_product_attention``; big_copy at the
+                 analysis phase's f32 shape, beside ``Tensor.clone``);
   9. trace    -- the main path once more: the sketch and the rest timed
                  apart, then one ``rid`` under ``torch.profiler`` (device
                  time by kernel, device idle share).
@@ -242,6 +253,22 @@ def main() -> int:
         from repro_torch.models.transformer import embed_tokens
         from repro_torch.obs import Tracer, tracing
         from repro_torch.serving import GenerationRequest, ServeEngine
+        from repro_torch.analysis.fixtures.badkernel.contract import (
+            CONTRACT as COPY_CONTRACT)
+        from repro_torch.analysis.fixtures.badkernel.kernel import (
+            LAUNCHES as COPY_LAUNCHES)
+        from repro_torch.analysis.fixtures.badkernel.kernel import (
+            library as copy_library)
+        from repro_torch.analysis.fixtures.badkernel.ops import big_copy
+        from repro_torch.analysis.fixtures.badkernel.ref import big_copy_ref
+        from repro_torch.analysis.kernels import geometry_report, hold_launch
+        from repro_torch.analysis.report import (diff_against_baseline,
+                                                 load_baseline)
+        from repro_torch.analysis.runner import CONTROLS, run_all
+        from repro_torch.kernels.cgs.kernel import project_out_launch
+        from repro_torch.kernels.common import SMEM_BUDGET_BYTES
+        from repro_torch.kernels.panel_step.kernel import (factor_launch,
+                                                           sweep_launch)
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -612,7 +639,8 @@ def main() -> int:
                       "sketch_matmul": MATMUL_LAUNCHES,
                       "fwht": FWHT_LAUNCHES,
                       "tsolve": TSOLVE_LAUNCHES,
-                      "flash": FLASH_LAUNCHES}
+                      "flash": FLASH_LAUNCHES,
+                      "big_copy": COPY_LAUNCHES}
 
     def reset_counts():
         for ctr in split_counters.values():
@@ -1147,6 +1175,103 @@ def main() -> int:
     del dmodel, caches, lg, toks, h, q, k, v, kr, vr, got, want
     torch.cuda.empty_cache()
 
+    # ---------- analysis: python -m repro_torch.analysis's run on the card
+    # run_all: the dataflow entries on a one-rank NCCL group, the kernel
+    # contracts held to the C side, the lint, the controls (big_copy's
+    # refusal and its launch at a fitting shape among them).  0 new
+    # findings against the empty baseline.
+    reset_counts()
+    t0 = time.perf_counter()
+    with bench_error.one_rank_group(dev):
+        report = run_all(device=dev)
+    torch.cuda.synchronize()
+    analysis_s = time.perf_counter() - t0
+    analysis_launches = read_counts()
+    new, suppressed, stale = diff_against_baseline(report, load_baseline())
+    # Each production kernel's launch at its contract's example shape
+    # (panel_coeff, panel_apply and project_out at their package's), held
+    # to the C side; big_copy's at its 64 MiB example.
+    f32 = torch.float32
+    geometry = {name: geometry_report(pkg) for name, pkg in (
+        ("sketch_accum", "sketch_accum"), ("panel_step", "panel_step"),
+        ("panel_gram", "panel_gram"), ("panel_deflate", "cgs"),
+        ("sketch_matmul", "sketch_matmul"), ("fwht", "srht"),
+        ("tsolve", "tsolve"), ("flash", "flash"))}
+    lib = _build.load_library()
+    for name, launches in (
+            ("panel_coeff", (factor_launch(f32, 256, 32),
+                             sweep_launch("coeff", f32, 256, 32, 4096))),
+            ("panel_apply", (sweep_launch("apply", f32, 256, 32, 4096),)),
+            ("project_out", (project_out_launch(f32, 256, 400, 4096),))):
+        geometry[name] = [hold_launch(ln, lib, SMEM_BUDGET_BYTES)
+                          for ln in launches]
+    geometry["big_copy"] = [hold_launch(ln, copy_library(),
+                                        COPY_CONTRACT.smem_budget)
+                            for ln in COPY_CONTRACT.example().launches]
+    emit({"phase": "analysis", "call": "run_all(device='cuda')",
+          "seconds": analysis_s, "passes": report.passes_run,
+          "subjects": {k: len(v) for k, v in report.subjects.items()},
+          "findings": [[f.rule, f.subject, f.key, f.severity]
+                       for f in report.findings],
+          "new": [[f.rule, f.subject, f.key, f.message] for f in new],
+          "launches": analysis_launches,
+          "geometry": {name: [{key: row[key] for key in (
+              "kernel", "grid", "threads", "declared_smem", "c_smem",
+              "static_smem", "registers", "spills", "budget", "equal")}
+              for row in rows] for name, rows in geometry.items()}})
+    check(not new and not suppressed,
+          f"analysis: new findings {[(f.rule, f.subject, f.key) for f in new]}")
+    check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
+          and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
+          f"analysis: passes {report.passes_run}")
+    check(len(geometry) == 12 and all(
+        row["equal"] for rows in geometry.values() for row in rows),
+        "analysis: a declared launch differs from the C side")
+    check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
+              for name, rows in geometry.items() if name != "big_copy"
+              for row in rows), "analysis: a production launch over budget")
+    check(geometry["big_copy"][0]["c_smem"] == 4096 * 4096 * 4
+          > SMEM_BUDGET_BYTES, "analysis: big_copy's example not over budget")
+    check(analysis_launches["big_copy"] >= 1,
+          "analysis: big_copy was not launched on the analysis path")
+    # big_copy against its plain version (the identity), bit for bit, at
+    # shapes inside one block's shared memory: f32 (4 CTAs) and c128
+    # (ragged last block); the example refused as a status; sketch_accum
+    # right after the refusal, held to its plain version.
+    copy_cases = []
+    for shape, dtype, bn in (((48, 1024), torch.float32, 256),
+                             ((32, 448), torch.complex128, 128)):
+        x = randn(shape, dtype)
+        got = big_copy(x, bn=bn)
+        torch.cuda.synchronize()
+        copy_cases.append({"shape": list(shape), "dtype": dname(dtype),
+                           "bn": bn, "smem": x.numel() * x.element_size(),
+                           "bit_equal": bool(torch.equal(got,
+                                                         big_copy_ref(x)))})
+    x = torch.zeros((4096, 4096), dtype=torch.float32, device=dev)
+    try:
+        big_copy(x, bn=2048)
+        torch.cuda.synchronize()
+        refusal = None
+    except RuntimeError as exc:
+        refusal = str(exc)
+    del x
+    xa, aa = randn((96, 1024), torch.float64), randn((1024, 512),
+                                                      torch.float64)
+    acc0 = torch.zeros((96, 512), dtype=torch.float64, device=dev)
+    after_err = rel_err(sketch_accum(xa, aa), sketch_accum_ref(xa, aa, acc0))
+    emit({"phase": "analysis", "check": "big_copy", "cases": copy_cases,
+          "example_refused": refusal,
+          "sketch_accum_after_refusal_rel_err": after_err,
+          "rel_tol": REL_TOL["float64"]})
+    check(all(c["bit_equal"] for c in copy_cases),
+          "analysis: big_copy differs from big_copy_ref")
+    check(refusal is not None, "analysis: big_copy's 64 MiB example launched")
+    check(after_err <= REL_TOL["float64"],
+          f"analysis: sketch_accum after the refusal rel err {after_err}")
+    del xa, aa, acc0
+    torch.cuda.empty_cache()
+
     # ------------------------------------ 8. times at the main path shapes
     dtype, esize = torch.float64, 8
     l, m, n, b = 2 * MAIN_K, MAIN_M, MAIN_N, PANEL
@@ -1349,8 +1474,31 @@ def main() -> int:
     del A, Y
     torch.cuda.empty_cache()
 
+    # big_copy at the fitting f32 shape of the analysis phase; launches
+    # from the analysis run.  It moves the operand once in and once out
+    # (each CTA re-reading all of it is the kernel's own traffic); the
+    # library call is Tensor.clone.
+    x = randn((48, 1024), torch.float32)
+    copy_bytes = 2.0 * x.numel() * x.element_size()
+    copy = {"name": "big_copy", "route": "cuda",
+            "source": "src/repro_torch/analysis/fixtures/badkernel/"
+                      "big_copy.cu",
+            "replaces": "src/repro/analysis/fixtures/badkernel/kernel.py:16",
+            "launches": analysis_launches["big_copy"], "max_abs_err": 0.0
+            if all(c["bit_equal"] for c in copy_cases) else None,
+            "ms": cuda_ms(lambda: big_copy(x, bn=256), 50),
+            "plain_ms": cuda_ms(lambda: big_copy_ref(x), 50),
+            "bound_ms": 1e3 * copy_bytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes",
+            "library_ms": cuda_ms(lambda: x.clone(), 50)}
+    emit({"phase": "times", "kernel": "big_copy", "m": 48, "n": 1024,
+          "bn": 256, "dtype": "float32", "bytes": copy_bytes,
+          **{key: copy[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}})
+    del x
+
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
-                      trisolve, proj, deflate, flash]})
+                      trisolve, proj, deflate, flash, copy]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

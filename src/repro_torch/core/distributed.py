@@ -121,3 +121,42 @@ def rid_distributed(gen_or_seed, A_loc: torch.Tensor, k: int, *, group,
     B = gather_columns_psum(A_loc, piv, group)
     return IDResult(B=B, P=_cast_interp(P_loc, A_loc.dtype), J=piv, Q=Q,
                     R=R)
+
+
+# ----------------------------------------------------- analysis registry
+# The distributed ID as the dataflow pass runs it (repro_torch.analysis), at the
+# reference's registration shapes: one eager call on the given device.
+# On the default process group.  The panel-parallel path must never
+# materialize an l x n collective (budget l n - 1 at l = 24); the
+# gathering 'blocked' path does so by design (budget l n).  Host reads by
+# design: one scalar a panel (two panels) and ``global_columns``'s shard
+# sizes, one a rank (one rank in the CLI's group).
+
+def _analysis_build_rid_distributed(qr_impl: str):
+    def build(device):
+        group = dist.group.WORLD
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        A = torch.randn((64, 400), generator=gen, device=device)
+
+        def fn(A):
+            return rid_distributed(0, shard_columns(A, group), 12,
+                                   group=group, qr_impl=qr_impl, qr_panel=7)
+        return fn, (A,)
+    return build
+
+
+def _register_analysis_entries():
+    from ..analysis.registry import register
+    l, n = 24, 400
+    register("rid_distributed.panel_parallel",
+             _analysis_build_rid_distributed("panel_parallel"),
+             max_collective_elems=l * n - 1,
+             max_host_syncs=3, tags=("distributed",))
+    register("rid_distributed.blocked",
+             _analysis_build_rid_distributed("blocked"),
+             max_collective_elems=l * n, max_host_syncs=3,
+             tags=("distributed",))
+
+
+_register_analysis_entries()

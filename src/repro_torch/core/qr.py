@@ -311,3 +311,27 @@ def pivoted_qr(Y: torch.Tensor, k: int, *, impl: str = "blocked",
     p = resolve_panel(panel, k, Y.shape[0])
     return blocked_pivoted_qr(Y, k, panel=p, panel_impl=panel_impl,
                               norm_recompute=norm_recompute)
+
+
+# ----------------------------------------------------- analysis registry
+# The blocked pivoted QR as the dataflow pass runs it (repro_torch.analysis), at the
+# reference's registration shapes: one eager call on the given device.
+# Panel 7 gives three panels; the engine reads one scalar a panel
+# (``_panel_ok``) by design.
+
+def _analysis_build_blocked(device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    Y = torch.randn((48, 400), generator=gen, device=device)
+
+    def fn(Y):
+        return pivoted_qr(Y, 21, impl="blocked", panel=7)
+    return fn, (Y,)
+
+
+def _register_analysis_entries():
+    from ..analysis.registry import register
+    register("pivoted_qr.blocked", _analysis_build_blocked, max_host_syncs=3)
+
+
+_register_analysis_entries()

@@ -327,3 +327,50 @@ def panel_parallel_pivoted_qr(Y_loc: torch.Tensor, k: int, *, group,
         Y_loc, k, group=group, panel=panel, panel_impl=panel_impl,
         norm_recompute=norm_recompute)
     return QRResult(Q=Q, R=R_loc, piv=piv)
+
+
+# ----------------------------------------------------- analysis registry
+# The per-rank panel-parallel QR as the dataflow pass runs it (repro_torch.analysis), at the
+# reference's registration shapes: one eager call on the given device.
+# On the default process group; panel=7 gives three panels, and 400
+# columns divide any world up to 8 ranks.  The fused path must keep each
+# panel's norm all_reduce in flight across the previous panel's
+# ``panel_apply``; the gram path is the serialized oracle and the
+# in-registry positive control (``expect_overlap=False``).  Both read one
+# scalar a panel (``_panel_ok``) by design.
+
+def _analysis_build(panel_impl: str):
+    def build(device):
+        group = dist.group.WORLD
+        l, n, k, b = 48, 400, 21, 7
+        ndev = dist.get_world_size(group)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        Y = torch.randn((l, n), generator=gen, device=device)
+        r = dist.get_rank(group)
+        Y_loc = Y[:, r * (n // ndev):(r + 1) * (n // ndev)].contiguous()
+
+        def fn(Y_loc):
+            return panel_parallel_qr_local(Y_loc, k, group=group, panel=b,
+                                           panel_impl=panel_impl)
+        return fn, (Y_loc,)
+    return build
+
+
+def _register_analysis_entries():
+    from ..analysis.registry import OverlapSpec, register
+    l, n = 48, 400
+    register("panel_parallel_qr_local.fused", _analysis_build("fused"),
+             overlap=OverlapSpec(norm_shape=(n,), deflate="panel_apply"),
+             max_collective_elems=l * n - 1,
+             max_host_syncs=3, tags=("distributed",))
+    register("panel_parallel_qr_local.gram", _analysis_build("gram"),
+             overlap=OverlapSpec(norm_shape=(n,), deflate="sub",
+                                 deflate_shape=(l, -1),
+                                 expect_overlap=False),
+             max_collective_elems=l * n - 1,
+             max_host_syncs=3,
+             tags=("control", "distributed"))
+
+
+_register_analysis_entries()

@@ -80,3 +80,28 @@ def rid(gen_or_seed, A: torch.Tensor, k: int, *, l: Optional[int] = None,
     Y = sketch(gen_or_seed, A, l, kind=sketch_kind, **operator).Y
     return rid_from_sketch(A, Y, k, qr_impl=qr_impl, qr_panel=qr_panel,
                            qr_norm_recompute=qr_norm_recompute)
+
+
+# ----------------------------------------------------- analysis registry
+# The rid entry point as the dataflow pass runs it (repro_torch.analysis), at the
+# reference's registration shapes: one eager call on the given device.
+# The blocked engine reads one scalar a panel (``qr._panel_ok``) by
+# design.
+
+def _analysis_build_rid(device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    A = torch.randn((256, 400), generator=gen, device=device)
+
+    def fn(A):
+        return rid(0, A, 21, sketch_kind="gaussian")
+    return fn, (A,)
+
+
+def _register_analysis_entries():
+    from ..analysis.registry import register
+    # k = 21 at the default panel width is one panel.
+    register("rid", _analysis_build_rid, max_host_syncs=1)
+
+
+_register_analysis_entries()

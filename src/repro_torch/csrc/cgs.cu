@@ -124,13 +124,13 @@ project_out_kernel(const T* __restrict__ q, const T* __restrict__ z, T* w,
 }
 
 template <class T>
-void launch_project_out(const void* q, const void* z, void* w, void* o,
-                        int64_t l, int64_t k, int64_t n, cudaStream_t stream) {
+cudaError_t launch_project_out(const void* q, const void* z, void* w, void* o,
+                               int64_t l, int64_t k, int64_t n, cudaStream_t stream) {
   const unsigned grid =
       static_cast<unsigned>((n + GemmShape<T>::BN - 1) / GemmShape<T>::BN);
-  project_out_kernel<T><<<grid, dim3(kGemmTX, kGemmTY), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(z), static_cast<T*>(w),
-      static_cast<T*>(o), l, k, n);
+  return launch(project_out_kernel<T>, dim3(grid), dim3(kGemmTX, kGemmTY), 0, stream,
+                static_cast<const T*>(q), static_cast<const T*>(z), static_cast<T*>(w),
+                static_cast<T*>(o), l, k, n);
 }
 
 }  // namespace
@@ -142,5 +142,4 @@ extern "C" int repro_project_out(int dtype, const void* q, const void* z,
   if (l < 0 || k < 0 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_project_out, q, z, w, o, l, k, n, s);
-  return static_cast<int>(cudaGetLastError());
 }

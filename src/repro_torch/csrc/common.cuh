@@ -91,15 +91,97 @@ template <> __device__ __forceinline__ double from_real<double>(double x) { retu
 template <> __device__ __forceinline__ cplx<float> from_real<cplx<float>>(float x) { return {x, 0.f}; }
 template <> __device__ __forceinline__ cplx<double> from_real<cplx<double>>(double x) { return {x, 0.0}; }
 
+// ------------------------------------------------------------ launches
+//
+// Every kernel is launched through launch() below, which returns the
+// status of the launch: that of a refused shared-memory request
+// (cudaFuncSetAttribute) before the kernel is queued, else
+// cudaGetLastError() after it.  A refused request's error is cleared
+// from the thread's last-error state, so the context and the next launch
+// are unaffected.
+//
+// Geometry query: while a thread has a LaunchSink installed (the C entry
+// points repro_query_begin / repro_query_end, REPRO_QUERY_ENTRIES), launch()
+// records what it would launch -- grid, block, dynamic shared bytes and the
+// kernel's static attributes -- instead of launching.  The analysis pass
+// calls the ordinary C entry points under a sink to hold each kernel
+// contract's declared launches to the code that issues them.
+
+constexpr int kQueryFields = 11;  // gx gy gz bx by bz smem static regs local maxthr
+
+struct LaunchSink {
+  int64_t* out;
+  int cap;
+  int n;
+};
+
+inline thread_local LaunchSink* g_launch_sink = nullptr;
+
+template <class... P, class... A>
+cudaError_t launch(void (*kern)(P...), dim3 grid, dim3 block, size_t smem,
+                   cudaStream_t stream, A... args) {
+  if (LaunchSink* s = g_launch_sink) {
+    if (s->n < s->cap) {
+      cudaFuncAttributes at{};
+      const cudaError_t e = cudaFuncGetAttributes(&at, kern);
+      if (e != cudaSuccess) {
+        cudaGetLastError();
+        return e;
+      }
+      int64_t* r = s->out + static_cast<int64_t>(s->n) * kQueryFields;
+      r[0] = grid.x; r[1] = grid.y; r[2] = grid.z;
+      r[3] = block.x; r[4] = block.y; r[5] = block.z;
+      r[6] = static_cast<int64_t>(smem);
+      r[7] = static_cast<int64_t>(at.sharedSizeBytes);
+      r[8] = at.numRegs;
+      r[9] = static_cast<int64_t>(at.localSizeBytes);
+      r[10] = at.maxThreadsPerBlock;
+    }
+    ++s->n;
+    return cudaSuccess;
+  }
+  if (smem > 0) {
+    if (smem > static_cast<size_t>(0x7fffffff)) return cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // a refused request leaves no sticky state
+      return e;
+    }
+  }
+  kern<<<grid, block, smem, stream>>>(static_cast<P>(args)...);
+  return cudaGetLastError();
+}
+
 }  // namespace repro
 
-// Calls LAUNCH<T>(args...) for the element type named by `code`; an unknown
-// code returns cudaErrorInvalidValue from the enclosing entry point.
+// The geometry-query entry points of one shared library (define once in it):
+// repro_query_begin(out, cap) installs a sink of cap records of
+// kQueryFields int64 each on the calling thread; repro_query_end() removes
+// it and returns the number of launches recorded.
+#define REPRO_QUERY_ENTRIES                                                 \
+  namespace {                                                               \
+  thread_local repro::LaunchSink g_query_sink;                              \
+  }                                                                         \
+  extern "C" void repro_query_begin(int64_t* out, int cap) {                \
+    g_query_sink = repro::LaunchSink{out, cap, 0};                          \
+    repro::g_launch_sink = &g_query_sink;                                   \
+  }                                                                         \
+  extern "C" int repro_query_end() {                                        \
+    repro::g_launch_sink = nullptr;                                         \
+    return g_query_sink.n;                                                  \
+  }
+
+// Returns LAUNCH<T>(args...) -- a cudaError_t -- for the element type named
+// by `code`, from the enclosing entry point; an unknown code returns
+// cudaErrorInvalidValue.
 #define REPRO_DISPATCH(code, LAUNCH, ...)                                   \
   switch (code) {                                                           \
-    case repro::kF32: LAUNCH<float>(__VA_ARGS__); break;                    \
-    case repro::kF64: LAUNCH<double>(__VA_ARGS__); break;                   \
-    case repro::kC64: LAUNCH<repro::cplx<float>>(__VA_ARGS__); break;       \
-    case repro::kC128: LAUNCH<repro::cplx<double>>(__VA_ARGS__); break;     \
+    case repro::kF32: return static_cast<int>(LAUNCH<float>(__VA_ARGS__));  \
+    case repro::kF64: return static_cast<int>(LAUNCH<double>(__VA_ARGS__)); \
+    case repro::kC64:                                                       \
+      return static_cast<int>(LAUNCH<repro::cplx<float>>(__VA_ARGS__));     \
+    case repro::kC128:                                                      \
+      return static_cast<int>(LAUNCH<repro::cplx<double>>(__VA_ARGS__));    \
     default: return static_cast<int>(cudaErrorInvalidValue);                \
   }

@@ -39,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;          // q rows per CTA
@@ -238,18 +240,13 @@ int launch_flash_nj(const void* q, const void* k, const void* v, void* o,
   const int ld = hd + 1;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * ld + kBQ * kLDP);
-  auto kern = flash_fwd_kernel<TQ, TKV, kNJ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(bh));
-  kern<<<grid, kThreads, smem, stream>>>(
+  return static_cast<int>(repro::launch(
+      flash_fwd_kernel<TQ, TKV, kNJ>, grid, dim3(kThreads), smem, stream,
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<TQ*>(o), s, t, hd, causal,
-      window);
-  return static_cast<int>(cudaGetLastError());
+      window));
 }
 
 template <class TQ, class TKV>

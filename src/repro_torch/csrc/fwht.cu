@@ -85,15 +85,15 @@ fwht_kernel(const T* x, T* y, int64_t n, int64_t stride, int f_log2,
 }
 
 template <class T>
-void launch_fwht(const void* x, void* y, int64_t m, int64_t n,
-                 int64_t stride, int f_log2, double scale,
-                 cudaStream_t stream) {
+cudaError_t launch_fwht(const void* x, void* y, int64_t m, int64_t n,
+                        int64_t stride, int f_log2, double scale,
+                        cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(m >> f_log2),
                   static_cast<unsigned>((n + slab_cols<T>() - 1) /
                                         slab_cols<T>()));
-  fwht_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, stride, f_log2,
-      static_cast<real_t<T>>(scale));
+  return launch(fwht_kernel<T>, grid, dim3(kThreads), 0, stream,
+                static_cast<const T*>(x), static_cast<T*>(y), n, stride, f_log2,
+                static_cast<real_t<T>>(scale));
 }
 
 }  // namespace
@@ -110,5 +110,4 @@ extern "C" int repro_fwht_pass(int dtype, const void* x, void* y, int64_t m,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_fwht, x, y, m, n, stride, f_log2, scale, s);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -46,18 +46,16 @@ panel_gram_kernel(const T* __restrict__ c, const T* __restrict__ z,
   }
 }
 
+// Returns the launch's status, a refused shared-memory request's included.
 template <class T>
-void launch_gram(const void* c, const void* z, void* g, void* v, int64_t l, int b,
-                 int64_t n, cudaStream_t stream) {
+cudaError_t launch_gram(const void* c, const void* z, void* g, void* v, int64_t l, int b,
+                        int64_t n, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (static_cast<size_t>(kSweepRows) * b +
                                    kSweepRows * kSweepCols);
-  cudaFuncSetAttribute(panel_gram_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
   const unsigned grid = 1 + static_cast<unsigned>((n + kSweepCols - 1) / kSweepCols);
-  panel_gram_kernel<T><<<grid, kSweepThreads, smem, stream>>>(
-      static_cast<const T*>(c), static_cast<const T*>(z), static_cast<T*>(g),
-      static_cast<T*>(v), l, b, n);
+  return launch(panel_gram_kernel<T>, dim3(grid), dim3(kSweepThreads), smem, stream,
+                static_cast<const T*>(c), static_cast<const T*>(z), static_cast<T*>(g),
+                static_cast<T*>(v), l, b, n);
 }
 
 }  // namespace
@@ -69,5 +67,4 @@ extern "C" int repro_panel_gram(int dtype, const void* c, const void* z, void* g
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_gram, c, z, g, v, l, static_cast<int>(b), n, s);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -80,13 +80,12 @@ sketch_accum_kernel(const T* __restrict__ x, const T* __restrict__ a,
 }
 
 template <class T>
-void launch_sketch_accum(const void* x, const void* a, const void* acc,
-                         void* out, int64_t l, int64_t m, int64_t n,
-                         cudaStream_t stream) {
-  sketch_accum_kernel<T><<<gemm_grid<T>(l, n), dim3(kGemmTX, kGemmTY), 0,
-                           stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<const T*>(acc), static_cast<T*>(out), l, m, n);
+cudaError_t launch_sketch_accum(const void* x, const void* a, const void* acc,
+                                void* out, int64_t l, int64_t m, int64_t n,
+                                cudaStream_t stream) {
+  return launch(sketch_accum_kernel<T>, gemm_grid<T>(l, n), dim3(kGemmTX, kGemmTY), 0,
+                stream, static_cast<const T*>(x), static_cast<const T*>(a),
+                static_cast<const T*>(acc), static_cast<T*>(out), l, m, n);
 }
 
 }  // namespace
@@ -98,5 +97,4 @@ extern "C" int repro_sketch_accum(int dtype, const void* x, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_sketch_accum, x, a, acc, out, l, m, n, s);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -57,13 +57,12 @@ sketch_matmul_kernel(const T* __restrict__ omega, const T* __restrict__ a,
 }
 
 template <class T>
-void launch_sketch_matmul(const void* omega, const void* a, void* out,
-                          int64_t l, int64_t m, int64_t n,
-                          cudaStream_t stream) {
-  sketch_matmul_kernel<T><<<gemm_grid<T>(l, n), dim3(kGemmTX, kGemmTY), 0,
-                            stream>>>(
-      static_cast<const T*>(omega), static_cast<const T*>(a),
-      static_cast<T*>(out), l, m, n);
+cudaError_t launch_sketch_matmul(const void* omega, const void* a, void* out,
+                                 int64_t l, int64_t m, int64_t n,
+                                 cudaStream_t stream) {
+  return launch(sketch_matmul_kernel<T>, gemm_grid<T>(l, n), dim3(kGemmTX, kGemmTY), 0,
+                stream, static_cast<const T*>(omega), static_cast<const T*>(a),
+                static_cast<T*>(out), l, m, n);
 }
 
 }  // namespace
@@ -75,5 +74,4 @@ extern "C" int repro_sketch_matmul(int dtype, const void* omega,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_sketch_matmul, omega, a, out, l, m, n, s);
-  return static_cast<int>(cudaGetLastError());
 }

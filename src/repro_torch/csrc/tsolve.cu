@@ -106,12 +106,12 @@ tsolve_kernel(const T* __restrict__ r1, const T* __restrict__ r2,
 }
 
 template <class T>
-void launch_tsolve(const void* r1, const void* r2, void* t, int64_t k,
-                   int64_t n, cudaStream_t stream) {
+cudaError_t launch_tsolve(const void* r1, const void* r2, void* t, int64_t k,
+                          int64_t n, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols));
-  tsolve_kernel<T><<<grid, dim3(kCols, kRowGroups), 0, stream>>>(
-      static_cast<const T*>(r1), static_cast<const T*>(r2),
-      static_cast<T*>(t), k, n);
+  return launch(tsolve_kernel<T>, grid, dim3(kCols, kRowGroups), 0, stream,
+                static_cast<const T*>(r1), static_cast<const T*>(r2),
+                static_cast<T*>(t), k, n);
 }
 
 }  // namespace
@@ -122,5 +122,4 @@ extern "C" int repro_tsolve(int dtype, const void* r1, const void* r2,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_tsolve, r1, r2, t, k, n, s);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,14 @@ nothing falls back to the plain versions.
 
 Each C entry point takes a dtype code (``common.dtype_code``), raw device
 pointers, int64 sizes and the CUDA stream, launches on that stream without
-synchronizing, and returns ``cudaGetLastError()``.
+synchronizing, and returns the launch's status (a refused shared-memory
+request's included; ``csrc/common.cuh``, ``launch``).
+
+A kernel kept out of the production library (the analysis fixture
+``big_copy``) is built the same way into a library of its own by
+``load_extra``.  ``query_launches`` asks a library what one call of an
+entry point would launch, without launching: the geometry the analysis
+pass holds the kernel contracts to.
 """
 from __future__ import annotations
 
@@ -22,10 +29,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "check_status", "NVCC_FLAGS"]
+from ..obs.clock import now
+
+__all__ = ["load_library", "load_extra", "query_launches", "build_info",
+           "check_status", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC = _PKG / "csrc"
@@ -66,10 +75,11 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict = {}
 # Filled by load_library: library path, build seconds (0.0 when reused)
-# and the per-kernel ``-Xptxas -v`` report.
-build_info: dict = {}
+# and the per-kernel ``-Xptxas -v`` report; ``libraries`` holds the same
+# three for every library built (production and extra), by name.
+build_info: dict = {"libraries": {}}
 
 
 def _nvcc() -> str:
@@ -82,13 +92,10 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _sources() -> list[Path]:
-    return sorted(_SRC.glob("*.cu"))
-
-
-def _digest() -> str:
+def _digest(sources: list[Path]) -> str:
+    """Hash of the flags, the sources and every ``csrc`` header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(_SRC.glob("*.cu*")):
+    for p in sorted(set(sources) | set(_SRC.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -138,12 +145,12 @@ def parse_ptxas(log: str) -> list[dict]:
     return out
 
 
-def _compile(dest: Path) -> str:
+def _compile(dest: Path, sources: list[Path]) -> str:
     nvcc = _nvcc()
     dest.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dest.parent) as tmp:
         procs = []
-        for src in _sources():
+        for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(_SRC), "-c", str(src),
                    "-o", str(obj)]
@@ -159,48 +166,99 @@ def _compile(dest: Path) -> str:
         log = "\n".join(logs)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
-        lib = Path(tmp) / "libkernels.so"
+        lib = Path(tmp) / dest.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(lib), *[str(o) for _, o, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log_path = dest.with_suffix(".log")
         (Path(tmp) / "build.log").write_text(log)
-        os.replace(Path(tmp) / "build.log", dest.parent / "build.log")
+        os.replace(Path(tmp) / "build.log", log_path)
         os.replace(lib, dest)
     return log
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use in this process."""
-    global _lib
+def _load(name: str, sources, signatures: dict) -> ctypes.CDLL:
+    """The library ``lib<name>.so`` of ``sources()``, built on first use in
+    this process (reused from the build directory when its hash matches).
+    Once loaded it is returned at once: every launch calls this."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        dest = _BUILD / _digest() / "libkernels.so"
-        t0 = time.perf_counter()
+        if name in _libs:
+            return _libs[name]
+        sources = sources()
+        dest = _BUILD / _digest(sources) / f"lib{name}.so"
+        t0 = now()
         if dest.exists():
-            log = (dest.parent / "build.log").read_text()
+            log = dest.with_suffix(".log").read_text()
             seconds = 0.0
         else:
-            log = _compile(dest)
-            seconds = time.perf_counter() - t0
+            log = _compile(dest, sources)
+            seconds = now() - t0
         lib = ctypes.CDLL(str(dest))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [_I]
         lib.repro_error_string.restype = ctypes.c_char_p
-        build_info.update(path=str(dest), seconds=seconds,
-                          ptxas=parse_ptxas(log))
-        _lib = lib
+        lib.repro_query_begin.argtypes = [_P, _I]
+        lib.repro_query_begin.restype = None
+        lib.repro_query_end.argtypes = []
+        lib.repro_query_end.restype = _I
+        info = {"path": str(dest), "seconds": seconds,
+                "ptxas": parse_ptxas(log)}
+        build_info["libraries"][name] = info
+        if name == "kernels":
+            build_info.update(info)
+        _libs[name] = lib
         return lib
 
 
-def check_status(name: str, rc: int) -> None:
+def load_library() -> ctypes.CDLL:
+    """The production kernels' shared library (every ``csrc/*.cu``)."""
+    return _load("kernels", lambda: sorted(_SRC.glob("*.cu")), _SIGNATURES)
+
+
+def load_extra(name: str, sources: list[Path],
+               signatures: dict) -> ctypes.CDLL:
+    """A library of kernels kept out of the production one, from
+    ``sources`` (each may include the ``csrc`` headers and must expand
+    ``REPRO_QUERY_ENTRIES`` and define ``repro_error_string`` once)."""
+    return _load(name, lambda: [Path(p) for p in sources], signatures)
+
+
+# Fields of one record of the geometry query (csrc/common.cuh, launch), and
+# the most records one query keeps (a C entry point launches one kernel).
+QUERY_FIELDS = ("gx", "gy", "gz", "bx", "by", "bz", "smem", "static_smem",
+                "registers", "local_bytes", "max_threads")
+_QUERY_CAP = 8
+
+
+def query_launches(lib: ctypes.CDLL, entry: str,
+                   args: tuple) -> tuple[int, list[dict]]:
+    """What one call ``entry(*args)`` would launch, without launching:
+    ``(status, [record, ...])``, a record per launch with ``QUERY_FIELDS``.
+    Pointer arguments may be any value (nothing is dereferenced)."""
+    cap = _QUERY_CAP
+    buf = (ctypes.c_int64 * (cap * len(QUERY_FIELDS)))()
+    lib.repro_query_begin(ctypes.cast(buf, _P), cap)
+    try:
+        rc = getattr(lib, entry)(*args)
+    finally:
+        n = lib.repro_query_end()
+    k = len(QUERY_FIELDS)
+    recs = [dict(zip(QUERY_FIELDS, buf[i * k:(i + 1) * k]))
+            for i in range(min(n, cap))]
+    return rc, recs
+
+
+def check_status(name: str, rc: int, lib: ctypes.CDLL | None = None) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if rc:
-        what = load_library().repro_error_string(rc).decode()
+        what = (lib or load_library()).repro_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc} ({what})")

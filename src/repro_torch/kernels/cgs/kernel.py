@@ -18,14 +18,31 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
-from ..panel_step.kernel import MAX_PANEL
+from ..common import (GEMM_THREADS, Launch, LaunchCounter, check_kernel_args,
+                      dtype_code, gemm_grid, type_name)
+from ..panel_step.kernel import MAX_PANEL, sweep_launch
 
-__all__ = ["project_out_kernel", "panel_deflate_kernel", "LAUNCHES",
-           "DEFLATE_LAUNCHES"]
+__all__ = ["project_out_kernel", "panel_deflate_kernel", "project_out_launch",
+           "panel_deflate_launch", "LAUNCHES", "DEFLATE_LAUNCHES"]
 
 LAUNCHES = LaunchCounter("project_out")
 DEFLATE_LAUNCHES = LaunchCounter("panel_deflate")
+
+
+def project_out_launch(dtype: torch.dtype, l: int, k: int, n: int) -> Launch:
+    """The launch for ``q`` (l, k), ``z`` (l, n): one CTA per column slab
+    of the tiled GEMM's width, no dynamic shared memory."""
+    return Launch(f"project_out_kernel<{type_name(dtype)}>",
+                  (gemm_grid(dtype, 1, n)[0], 1, 1), GEMM_THREADS, 0,
+                  "repro_project_out",
+                  (dtype_code(dtype), None, None, None, None, l, k, n, None))
+
+
+def panel_deflate_launch(dtype: torch.dtype, l: int, b: int,
+                         n: int) -> Launch:
+    """The launch for ``q`` (l, b), ``z`` (l, n): the panel step's sweep
+    with ``W`` stored (``panel_step.kernel.sweep_launch``)."""
+    return sweep_launch("deflate", dtype, l, b, n)
 
 
 def _check_rows(name: str, q: torch.Tensor, z: torch.Tensor) -> None:

@@ -1,11 +1,31 @@
 """Shared helpers for the port's kernel packages (counterpart of
-``repro.kernels.common`` without the TPU tiling constants)."""
+``repro.kernels.common`` without the TPU tiling constants).
+
+Every kernel package also ships a ``contract.py`` declaring a
+:class:`KernelContract`, the metadata ``repro_torch.analysis.kernels``
+checks: the kernel/ref/ops triple with matching signatures, pinned
+constants (Python values, and Python values that must equal a constant of
+the CUDA source), a representative example whose declared launches must
+fit one block's shared memory, and a known-bad call that must raise
+``ValueError`` eagerly.
+"""
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import torch
 
 __all__ = ["cdiv", "round_up", "pad_to", "acc_dtype_for", "KERNEL_DTYPES",
-           "LaunchCounter", "dtype_code", "check_kernel_args"]
+           "LaunchCounter", "dtype_code", "check_kernel_args", "type_name",
+           "Launch", "Example", "KernelContract", "SMEM_BUDGET_BYTES",
+           "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_grid"]
+
+# Hopper (sm_90): the most dynamic shared memory one block may opt in to
+# (227 KiB), and the most threads a block may have.
+SMEM_BUDGET_BYTES = 232448
+MAX_THREADS_PER_BLOCK = 1024
 
 # The element types every hand-written kernel is instantiated for.  A CUDA
 # tensor of any other dtype is rejected by the wrappers, never sent to a
@@ -75,3 +95,86 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev
+
+
+# ptxas's names of the element types (kernels/_build.py, parse_ptxas).
+_TYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
+               torch.complex64: "complex64", torch.complex128: "complex128",
+               torch.bfloat16: "bfloat16"}
+
+
+def type_name(dtype: torch.dtype) -> str:
+    return _TYPE_NAMES[dtype]
+
+
+# The tiled GEMM of csrc/gemm_tile.cuh: a 16 x 16 block, each thread a
+# TM x TN micro-tile (GemmTile<T>), so a block covers (16 TM) x (16 TN).
+GEMM_THREADS = (16, 16, 1)
+_GEMM_TILE = {torch.float32: (8, 8), torch.float64: (4, 8),
+              torch.complex64: (4, 4), torch.complex128: (4, 4)}
+
+
+def gemm_grid(dtype: torch.dtype, l: int, n: int) -> tuple:
+    """Grid of the tiled GEMM for an (l, n) output (``gemm_grid<T>``)."""
+    tm, tn = _GEMM_TILE[dtype]
+    return (cdiv(n, GEMM_THREADS[0] * tn), cdiv(l, GEMM_THREADS[1] * tm), 1)
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch that a wrapper issues, as its contract declares
+    it: the kernel (by its ``-Xptxas -v`` name), grid, block and dynamic
+    shared bytes, and the C entry point call that issues it (``args``
+    with every pointer as ``None``) in the library ``library``.  The
+    analysis pass holds the declaration to that call on the card."""
+    kernel: str
+    grid: tuple
+    threads: tuple
+    smem: int
+    entry: str
+    args: tuple
+    library: str = "kernels"
+
+    @property
+    def threads_per_block(self) -> int:
+        return math.prod(self.threads)
+
+
+@dataclass(frozen=True)
+class Example:
+    """A representative call ``fn(*args, **kwargs)``, ``args`` as meta
+    tensors (shape and dtype only), and the launches it issues."""
+    fn: Callable
+    args: tuple
+    kwargs: dict
+    launches: tuple
+
+
+@dataclass(frozen=True)
+class KernelContract:
+    """Contract of one ``kernels/<name>/`` package (counterpart of
+    ``repro.kernels.common.KernelContract``), checked by
+    ``repro_torch.analysis.kernels``.
+
+    ``pairs`` couples each public ops wrapper to its plain version; their
+    leading positional parameter names must agree.  ``example`` builds an
+    :class:`Example` whose declared launches are computed by the kernel
+    module's geometry functions; each must fit ``smem_budget`` bytes of
+    shared memory and 1024 threads per block, and on the card it must
+    equal what the wrapper calls and what the C side launches.
+    ``constants`` pins kernel.py attributes to values; ``c_constants``
+    pins kernel.py attributes to a ``constexpr int`` of a CUDA source
+    (``{attr: (file under csrc, C name)}``), parsed from the file.
+    ``bad_call`` must raise ``ValueError`` eagerly on CPU tensors.
+    """
+    name: str
+    ops: tuple
+    kernels: tuple
+    refs: tuple
+    pairs: tuple = ()
+    example: Optional[Callable] = None     # () -> Example
+    constants: dict = field(default_factory=dict)
+    c_constants: dict = field(default_factory=dict)
+    bad_call: Optional[Callable] = None
+    smem_budget: int = SMEM_BUDGET_BYTES
+    measure_residency: bool = False

@@ -14,14 +14,34 @@ from typing import Optional
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter
+from ..common import Launch, LaunchCounter, cdiv, type_name
 
-__all__ = ["flash_attention_kernel", "LAUNCHES", "FLASH_DTYPES", "MAX_HD"]
+__all__ = ["flash_attention_kernel", "flash_launch", "LAUNCHES",
+           "FLASH_DTYPES", "MAX_HD"]
 
 LAUNCHES = LaunchCounter("flash")
 # Element-type codes of csrc/flash.cu (enum FlashDType), in this order.
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
+# Tile of csrc/flash.cu: 64 q rows per CTA, kv blocks of 64 rows, 256
+# threads.
+BQ, BK, THREADS = 64, 64, 256
+
+
+def flash_launch(q_dtype: torch.dtype, kv_dtype: torch.dtype, bh: int,
+                 s: int, t: int, hd: int, causal: bool = True,
+                 window: Optional[int] = None) -> Launch:
+    """The launch for ``q`` (bh, s, hd), ``k`` and ``v`` (bh, t, hd): one
+    CTA per (bh, 64-row q block); the q tile, a k and a v tile (rows of
+    hd + 1 floats) and the 64 x 65 p tile in shared memory."""
+    nj = 4 if hd <= 64 else 8 if hd <= 128 else 16
+    smem = 4 * ((BQ + 2 * BK) * (hd + 1) + BQ * (BK + 1))
+    return Launch(f"flash_fwd_kernel<{type_name(q_dtype)},"
+                  f"{type_name(kv_dtype)},{nj}>", (cdiv(s, BQ), bh, 1),
+                  (THREADS, 1, 1), smem, "repro_flash_attention",
+                  (FLASH_DTYPES.index(q_dtype), FLASH_DTYPES.index(kv_dtype),
+                   None, None, None, None, bh, s, t, hd, int(causal),
+                   -1 if window is None else int(window), None))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -45,10 +65,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"in [8, {MAX_HD}]")
     if not 1 <= q.shape[0] <= 65535:
         raise ValueError(f"flash: BH={q.shape[0]}; need 1 <= BH <= 65535")
-    for t in ts:
+    for name, t in zip("qkv", ts):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash: q, k, v must be contiguous and 16-byte "
-                             "aligned")
+            raise ValueError(f"flash: {name} must be contiguous and 16-byte "
+                             f"aligned, got shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}, data_ptr % 16 = "
+                             f"{t.data_ptr() % 16}")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,

@@ -11,12 +11,25 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
-from ..panel_step.kernel import MAX_PANEL
+from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
+                      dtype_code, type_name)
+from ..panel_step.kernel import (MAX_PANEL, SWEEP_COLS, SWEEP_ROWS,
+                                 SWEEP_THREADS)
 
-__all__ = ["panel_gram_kernel", "LAUNCHES"]
+__all__ = ["panel_gram_kernel", "panel_gram_launch", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("panel_gram")
+
+
+def panel_gram_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
+    """The launch for ``c`` (l, b), ``z`` (l, n): ``1 + ceil(n / 32)``
+    CTAs, each staging a 32-row chunk of ``c`` and of a ``z`` slab."""
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return Launch(f"panel_gram_kernel<{type_name(dtype)}>",
+                  (1 + cdiv(n, SWEEP_COLS), 1, 1), (SWEEP_THREADS, 1, 1),
+                  itemsize * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS),
+                  "repro_panel_gram",
+                  (dtype_code(dtype), None, None, None, None, l, b, n, None))
 
 
 def panel_gram_kernel(c: torch.Tensor, z: torch.Tensor):

@@ -1,0 +1,45 @@
+"""Contract of the fused panel-step kernels (counterpart of
+``repro/kernels/panel_step/contract.py``; see ``kernels.common.KernelContract``
+for the fields)."""
+from __future__ import annotations
+
+import torch
+
+from ..common import Example, KernelContract
+from .kernel import factor_launch, sweep_launch
+
+f32 = torch.float32
+
+
+def _example() -> Example:
+    from .ops import panel_step
+    l, b, n = 256, 32, 4096
+    c = torch.empty((l, b), dtype=f32, device="meta")
+    z = torch.empty((l, n), dtype=f32, device="meta")
+    return Example(panel_step, (c, z), {},
+                   (factor_launch(f32, l, b), sweep_launch("step", f32, l, b, n)))
+
+
+def _bad_call():
+    # c has 8 rows, z 16: ops.py must reject it before any dispatch.
+    from .ops import panel_step
+    panel_step(torch.ones((8, 4)), torch.ones((16, 32)))
+
+
+CONTRACT = KernelContract(
+    name="panel_step",
+    ops=("panel_step", "panel_coeff", "panel_apply"),
+    kernels=("panel_step_kernel", "panel_coeff_kernel",
+             "panel_apply_kernel"),
+    refs=("panel_step_ref", "panel_coeff_ref", "panel_apply_ref"),
+    pairs=(("panel_step", "panel_step_ref"),
+           ("panel_coeff", "panel_coeff_ref"),
+           ("panel_apply", "panel_apply_ref")),
+    example=_example,
+    c_constants={"MAX_PANEL": ("panel_common.cuh", "kMaxPanel"),
+                 "SWEEP_COLS": ("panel_common.cuh", "kSweepCols"),
+                 "SWEEP_ROWS": ("panel_common.cuh", "kSweepRows"),
+                 "SWEEP_WARPS": ("panel_common.cuh", "kSweepWarps"),
+                 "FACTOR_THREADS": ("panel_step.cu", "kFactorThreads")},
+    bad_call=_bad_call,
+)

@@ -27,14 +27,22 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
+from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
+                      dtype_code, type_name)
 
 __all__ = ["MAX_PANEL", "panel_step_kernel", "panel_coeff_kernel",
-           "panel_apply_kernel", "LAUNCHES", "COEFF_LAUNCHES",
-           "APPLY_LAUNCHES", "APPLY_NORMS_LAUNCHES"]
+           "panel_apply_kernel", "factor_launch", "sweep_launch", "LAUNCHES",
+           "COEFF_LAUNCHES", "APPLY_LAUNCHES", "APPLY_NORMS_LAUNCHES"]
 
-# Widest panel the kernels take (csrc/panel_common.cuh, kMaxPanel).
+# Widest panel the kernels take (csrc/panel_common.cuh, kMaxPanel; the
+# kernel contract holds the two equal).
 MAX_PANEL = 64
+# The sweep's tile (csrc/panel_common.cuh): 32 columns of Z per CTA, one
+# per lane, 8 warps, l staged in 32-row chunks; the factor's CTA size
+# (csrc/panel_step.cu).
+SWEEP_COLS, SWEEP_ROWS, SWEEP_WARPS = 32, 32, 8
+SWEEP_THREADS = SWEEP_COLS * SWEEP_WARPS
+FACTOR_THREADS = 512
 
 LAUNCHES = LaunchCounter("panel_step")
 COEFF_LAUNCHES = LaunchCounter("panel_coeff")
@@ -45,6 +53,45 @@ APPLY_NORMS_LAUNCHES = LaunchCounter("panel_apply(emit_norms)")
 
 def _real_dtype(t: torch.Tensor) -> torch.dtype:
     return t.real.dtype if t.is_complex() else t.dtype
+
+
+def _sizes(dtype: torch.dtype) -> tuple[int, int]:
+    """Bytes of one element and of its real part."""
+    t = torch.empty((), dtype=dtype, device="meta")
+    return t.element_size(), _real_dtype(t).itemsize
+
+
+def factor_launch(dtype: torch.dtype, l: int, b: int) -> Launch:
+    """The factor's launch for a panel ``c`` (l, b): one CTA; G (b x b),
+    one column and the real pivots in shared memory."""
+    item, ritem = _sizes(dtype)
+    return Launch(f"panel_factor_kernel<{type_name(dtype)}>", (1, 1, 1),
+                  (FACTOR_THREADS, 1, 1), item * (b * b + b) + ritem * b,
+                  "repro_panel_factor",
+                  (dtype_code(dtype), None, None, l, b, None))
+
+
+# Sweep variants: template flags (computes W, emits O) and C entry point.
+_SWEEPS = {"step": ("true,true", "repro_panel_sweep", 5),
+           "deflate": ("true,true", "repro_panel_deflate", 4),
+           "coeff": ("true,false", "repro_panel_coeff_sweep", 5),
+           "apply": ("false,true", "repro_panel_apply", 5)}
+
+
+def sweep_launch(variant: str, dtype: torch.dtype, l: int, b: int,
+                 n: int) -> Launch:
+    """A sweep's launch (``variant`` one of ``_SWEEPS``) over ``z`` (l, n)
+    with a panel of ``b`` columns: one CTA per 32-column slab, a 32-row
+    chunk of the panel and of the slab, ``W`` and the warps' norm partials
+    in shared memory."""
+    flags, entry, pointers = _SWEEPS[variant]
+    item, ritem = _sizes(dtype)
+    smem = (item * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS
+                    + b * SWEEP_COLS) + ritem * SWEEP_WARPS * SWEEP_COLS)
+    return Launch(f"panel_sweep_kernel<{type_name(dtype)},{flags}>",
+                  (cdiv(n, SWEEP_COLS), 1, 1), (SWEEP_THREADS, 1, 1), smem,
+                  entry, (dtype_code(dtype),) + (None,) * pointers
+                  + (l, b, n, None))
 
 
 def _check_panel(name: str, panel: torch.Tensor, z: torch.Tensor) -> None:

@@ -89,14 +89,14 @@ def panel_step_ref(c: torch.Tensor, z: torch.Tensor):
     return qp, o, w, colnorms2(o)
 
 
-def panel_coeff_ref(c: torch.Tensor, z: torch.Tensor, r2: torch.Tensor):
-    """``(Q_p, W, max(r2 - colnorms^2(W), 0))``: the factor and coefficient
-    half of the panel (stage A of the distributed panel), with the residual
-    norms downdated instead of recomputed (exact for an orthonormal panel,
-    by Pythagoras); ``r2`` is real."""
+def panel_coeff_ref(c: torch.Tensor, z: torch.Tensor, res2: torch.Tensor):
+    """``(Q_p, W, max(res2 - colnorms^2(W), 0))``: the factor and
+    coefficient half of the panel (stage A of the distributed panel), with
+    the residual norms downdated instead of recomputed (exact for an
+    orthonormal panel, by Pythagoras); ``res2`` is real."""
     qp = factor_cholqr2(c)
     w = qp.mH @ z
-    return qp, w, torch.clamp(r2 - colnorms2(w), min=0)
+    return qp, w, torch.clamp(res2 - colnorms2(w), min=0)
 
 
 def panel_apply_ref(qp: torch.Tensor, w: torch.Tensor,

@@ -13,9 +13,11 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
+from ..common import (GEMM_THREADS, Launch, LaunchCounter, check_kernel_args,
+                      dtype_code, gemm_grid, type_name)
 
-__all__ = ["ACCUM_BLOCK", "sketch_accum_kernel", "LAUNCHES"]
+__all__ = ["ACCUM_BLOCK", "sketch_accum_kernel", "sketch_accum_launch",
+           "LAUNCHES"]
 
 # The canonical reduction block (rows of ``a`` per accumulate step).  A
 # replay constant, not a tuning knob: it fixes the association of the row
@@ -24,6 +26,15 @@ __all__ = ["ACCUM_BLOCK", "sketch_accum_kernel", "LAUNCHES"]
 ACCUM_BLOCK = 128
 
 LAUNCHES = LaunchCounter("sketch_accum")
+
+
+def sketch_accum_launch(dtype: torch.dtype, l: int, m: int, n: int) -> Launch:
+    """The launch for ``x`` (l, m), ``a`` (m, n): one CTA per output tile of
+    the tiled GEMM, no dynamic shared memory."""
+    return Launch(f"sketch_accum_kernel<{type_name(dtype)}>",
+                  gemm_grid(dtype, l, n), GEMM_THREADS, 0,
+                  "repro_sketch_accum",
+                  (dtype_code(dtype), None, None, None, None, l, m, n, None))
 
 
 def sketch_accum_kernel(x: torch.Tensor, a: torch.Tensor,

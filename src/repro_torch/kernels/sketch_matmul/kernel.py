@@ -13,11 +13,22 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
+from ..common import (GEMM_THREADS, Launch, LaunchCounter, check_kernel_args,
+                      dtype_code, gemm_grid, type_name)
 
-__all__ = ["sketch_matmul_kernel", "LAUNCHES"]
+__all__ = ["sketch_matmul_kernel", "sketch_matmul_launch", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("sketch_matmul")
+
+
+def sketch_matmul_launch(dtype: torch.dtype, l: int, m: int,
+                         n: int) -> Launch:
+    """The launch for ``omega`` (l, m), ``a`` (m, n): one CTA per output
+    tile, no dynamic shared memory."""
+    return Launch(f"sketch_matmul_kernel<{type_name(dtype)}>",
+                  gemm_grid(dtype, l, n), GEMM_THREADS, 0,
+                  "repro_sketch_matmul",
+                  (dtype_code(dtype), None, None, None, l, m, n, None))
 
 
 def sketch_matmul_kernel(omega: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

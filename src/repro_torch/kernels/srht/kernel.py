@@ -14,15 +14,32 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
+from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
+                      dtype_code, type_name)
 
-__all__ = ["MAX_SLAB_LOG2", "fwht_pass_kernel", "LAUNCHES"]
+__all__ = ["MAX_SLAB_LOG2", "fwht_pass_kernel", "fwht_pass_launch",
+           "LAUNCHES"]
 
 # Largest factor of one sweep: 2^8 rows x 128 bytes = 32 KB of shared
 # memory per CTA.  csrc/fwht.cu holds the same value.
 MAX_SLAB_LOG2 = 8
 
 LAUNCHES = LaunchCounter("fwht")
+# Threads per CTA (csrc/fwht.cu).
+THREADS = 256
+
+
+def fwht_pass_launch(dtype: torch.dtype, m: int, n: int, f_log2: int,
+                     stride: int, scale: float) -> Launch:
+    """The launch of one sweep over ``x`` (m, n): one CTA per group of
+    ``2^f_log2`` rows and 128-byte column slab, static shared memory
+    only."""
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return Launch(f"fwht_kernel<{type_name(dtype)}>",
+                  (m >> f_log2, cdiv(n, 128 // itemsize), 1), (THREADS, 1, 1),
+                  0, "repro_fwht_pass",
+                  (dtype_code(dtype), None, None, m, n, stride, f_log2, scale,
+                   None))
 
 
 def fwht_pass_kernel(x: torch.Tensor, out: torch.Tensor, f_log2: int,

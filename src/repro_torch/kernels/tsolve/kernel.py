@@ -12,11 +12,22 @@ from __future__ import annotations
 import torch
 
 from .._build import check_status, load_library
-from ..common import LaunchCounter, check_kernel_args, dtype_code
+from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
+                      dtype_code, type_name)
 
-__all__ = ["tsolve_kernel", "LAUNCHES"]
+__all__ = ["tsolve_kernel", "tsolve_launch", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("tsolve")
+# Columns of r2 per CTA and row groups per CTA (csrc/tsolve.cu).
+COLS, ROW_GROUPS = 32, 8
+
+
+def tsolve_launch(dtype: torch.dtype, k: int, n: int) -> Launch:
+    """The launch for ``r1`` (k, k), ``r2`` (k, n): one CTA of 32 x 8
+    threads per 32-column slab, static shared memory only."""
+    return Launch(f"tsolve_kernel<{type_name(dtype)}>", (cdiv(n, COLS), 1, 1),
+                  (COLS, ROW_GROUPS, 1), 0, "repro_tsolve",
+                  (dtype_code(dtype), None, None, None, k, n, None))
 
 
 def tsolve_kernel(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:

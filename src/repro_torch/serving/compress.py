@@ -16,9 +16,12 @@ weights, which a ``LowRankWeight`` does not have either
 
 The tree may be nested dicts, lists and tuples of tensors or an
 ``nn.Module`` (the port's ``Transformer``): a module's leaves are its
-parameters, named by their dotted path.  Only 2-D leaves are eligible:
-the port's model holds one weight per layer, where the reference stacks
-each weight over the layers and factors the stack slice by slice.
+parameters, named by their dotted path.  Only 2-D leaves are eligible.
+The port's model holds one weight per layer, where the reference stacks
+each projection over the layers; ``compress_params`` therefore groups the
+layers' leaves of one projection (``blocks.<i>.mixer.wq`` for every ``i``
+is the projection ``blocks.*.mixer.wq``) and, as the reference does with
+a stack, factors every layer of it or none.
 """
 from __future__ import annotations
 
@@ -122,36 +125,54 @@ def _with_leaf(tree, path, value):
     return type(tree)(items)
 
 
+def _projection(path) -> str:
+    """Name of the projection a leaf belongs to: its path with the layer
+    index after ``blocks`` written ``*`` (the reference's stacked leaf)."""
+    parts = [str(p) for p in path]
+    for j in range(1, len(parts)):
+        if parts[j - 1] == "blocks" and parts[j].isdigit():
+            parts[j] = "*"
+    return ".".join(parts)
+
+
 def compress_params(gen_or_seed: int, params: Any, *, rank: int,
                     energy_keep: float = 0.95,
                     qr_impl: str = "blocked") -> tuple[Any, dict]:
     """Replace eligible leaves with LowRankWeight factors.  Returns (tree,
     report); the input is not modified (a module is copied before its
     first factored leaf is set).
+
+    The layers of one projection (``_projection``) are factored together
+    or not at all, as the reference factors a stacked leaf only if every
+    slice passes the energy test; the report has one entry per projection,
+    with ``dense_elems`` and ``factored_elems`` summed over its layers.
     ``qr_impl`` selects the pivoted-QR engine of the probing RSVD
     ('blocked' production default | 'cgs2' oracle).  Leaf ``i`` is probed
     with the seed ``block_seed(seed, i)``."""
     if isinstance(gen_or_seed, torch.Generator):
         raise TypeError("compress_params takes an int seed (one per leaf "
                         "is derived from it), not a generator")
-    found = list(_leaves(params))
+    groups: dict = {}
+    for i, (path, leaf) in enumerate(_leaves(params)):
+        if _eligible(path, leaf):
+            groups.setdefault(_projection(path), []).append((i, path, leaf))
     out, report = params, {}
-    for i, (path, leaf) in enumerate(found):
-        if not _eligible(path, leaf):
-            continue
-        lw = _maybe_compress(block_seed(gen_or_seed, i), leaf, rank,
-                             energy_keep, qr_impl)
-        name = _name(path)
-        if lw is None:
+    for name, members in groups.items():
+        lws = [_maybe_compress(block_seed(gen_or_seed, i), leaf, rank,
+                               energy_keep, qr_impl)
+               for i, _, leaf in members]
+        if any(lw is None for lw in lws):
             report[name] = {"compressed": False}
-        else:
-            if out is params and isinstance(params, nn.Module):
-                out = copy.deepcopy(params)     # copied on the first factor
+            continue
+        if out is params and isinstance(params, nn.Module):
+            out = copy.deepcopy(params)         # copied on the first factor
+        for (_, path, _), lw in zip(members, lws):
             out = _with_leaf(out, path, lw)
-            report[name] = {"compressed": True,
-                            "dense_elems": int(leaf.numel()),
-                            "factored_elems": int(lw.B.numel()
-                                                  + lw.P.numel())}
+        report[name] = {
+            "compressed": True,
+            "dense_elems": sum(int(leaf.numel()) for _, _, leaf in members),
+            "factored_elems": sum(int(lw.B.numel() + lw.P.numel())
+                                  for lw in lws)}
     return out, report
 
 

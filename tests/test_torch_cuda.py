@@ -659,5 +659,55 @@ def test_cuda_compress_params_runs_the_id_kernels():
     ACCUM_LAUNCHES.reset()
     PANEL_LAUNCHES.reset()
     _, report = compress_params(1, model, rank=8)
-    assert len(report) == 14
+    # one report entry per projection (7), each probed in both layers
+    assert len(report) == 7
     assert ACCUM_LAUNCHES.count == 14 and PANEL_LAUNCHES.count >= 14
+
+
+@pytest.mark.cuda
+def test_cuda_big_copy_exact_and_example_refused_as_status():
+    """The analysis fixture kernel copies exactly where the operand fits
+    one block's shared memory, and its 64 MiB contract example is refused
+    as a status (RuntimeError) that leaves the context usable."""
+    from repro_torch.analysis.fixtures.badkernel.kernel import (
+        LAUNCHES as COPY_LAUNCHES)
+    from repro_torch.analysis.fixtures.badkernel.ops import big_copy
+    dev = _device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for shape, dtype, bn in (((48, 1024), torch.float32, 256),
+                             ((32, 448), torch.complex128, 128)):
+        x = _randn(gen, shape, dtype, dev)
+        n0 = COPY_LAUNCHES.count
+        assert torch.equal(big_copy(x, bn=bn), x)
+        assert COPY_LAUNCHES.count == n0 + 1
+    with pytest.raises(RuntimeError, match="big_copy"):
+        big_copy(torch.zeros((4096, 4096), device=dev), bn=2048)
+        torch.cuda.synchronize()
+    x, a = _randn(gen, (96, 1024), torch.float64, dev), \
+        _randn(gen, (1024, 512), torch.float64, dev)
+    acc = torch.zeros((96, 512), dtype=torch.float64, device=dev)
+    assert _rel(sketch_accum(x, a), sketch_accum_ref(x, a, acc)) <= \
+        REL_TOL[torch.float64]
+
+
+@pytest.mark.cuda
+def test_cuda_contract_geometry_equals_the_c_side():
+    """Every production contract's declared launches equal what the
+    wrapper calls and what the C side launches, within the budget; the
+    fixture's example is over it on the card too."""
+    from repro_torch.analysis.fixtures import BADKERNEL_BASE
+    from repro_torch.analysis.kernels import (check_all_kernels,
+                                              check_package, geometry_report,
+                                              kernel_packages)
+    dev = _device()
+    findings, pkgs = check_all_kernels(dev)
+    assert [f for f in findings if f.severity == "error"] == [], findings
+    assert any(f.rule == "kernels.residency" for f in findings)
+    for pkg in kernel_packages():
+        assert all(row["equal"] and row["status"] == 0
+                   for row in geometry_report(pkg)), pkg
+    bad = check_package("badkernel", base=BADKERNEL_BASE, device=dev)
+    assert sorted({f.rule for f in bad}) == ["kernels.smem-overflow"], bad
+    (row,) = geometry_report("badkernel", base=BADKERNEL_BASE)
+    assert row["equal"] and row["c_smem"] == 4096 * 4096 * 4

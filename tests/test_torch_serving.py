@@ -432,20 +432,67 @@ def test_compress_takes_only_2d_leaves():
 
 
 def test_compress_module_reports_every_projection(models):
-    """Every eligible leaf of the model is probed and reported; the input
-    model keeps its dense parameters whatever is factored.  (Which leaves
-    of a random model pass ``energy_keep`` depends on the draw, in both
-    packages: ROADMAP Queue C.)"""
+    """Every eligible leaf of the model is probed and each projection is
+    reported once, over its layers; the input model keeps its dense
+    parameters whatever is factored, and the layers of a projection are
+    factored together or not at all."""
     _, _, tc, model = models
     out, report = compress_params(1, model, rank=8)
-    assert list(report) == low_rank_targets(model)
-    assert "/14 eligible weight matrices" in compression_report(report)
+    targets = low_rank_targets(model)
+    projections = list(dict.fromkeys(
+        ".".join("*" if p.isdigit() else p for p in name.split("."))
+        for name in targets))
+    assert list(report) == projections and len(projections) == 7
+    assert "/7 eligible weight matrices" in compression_report(report)
     assert all(isinstance(p, torch.nn.Parameter) for p in model.parameters())
-    for name, r in report.items():
+    for name in targets:
+        proj = ".".join("*" if p.isdigit() else p for p in name.split("."))
         mod, attr = name.rsplit(".", 1)
         leaf = getattr(out.get_submodule(mod), attr)
-        assert isinstance(leaf, LowRankWeight) == r["compressed"]
+        assert isinstance(leaf, LowRankWeight) == report[proj]["compressed"]
         assert tuple(leaf.shape) == tuple(model.get_parameter(name).shape)
+
+
+def test_compress_params_decides_per_projection_like_reference():
+    """One projection is exactly rank 4 in every layer but one, where it
+    is a flat-spectrum Gaussian (top-4 energy about 0.06 at 256 x 256,
+    far under 0.95); another is exactly rank 4 in every layer.  Both
+    packages factor the second and leave the first dense, whatever the
+    draw, with one report entry per projection and equal totals."""
+    jc = jcfgs.get_smoke_config(ARCH).replace(
+        dtype="float32", n_layers=3, d_model=256, d_ff=512)
+    tc = tcfgs.get_smoke_config(ARCH).replace(
+        dtype="float32", n_layers=3, d_model=256, d_ff=512)
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        jp = jax.tree.map(np.asarray,
+                          jmodels.init_params(jax.random.key(seed), jc))
+        blk = jp["blocks"][0]
+
+        def rank4(m, n):
+            return (rng.standard_normal((m, 4)) @ rng.standard_normal((4, n))
+                    ).astype(np.float32)
+        wq = np.stack([rank4(*blk["mixer"]["wq"].shape[1:])
+                       for _ in range(jc.n_layers)])
+        wq[1] = rng.standard_normal(wq.shape[1:]).astype(np.float32)
+        blk["mixer"]["wq"] = wq
+        blk["mlp"]["w_up"] = np.stack([rank4(*blk["mlp"]["w_up"].shape[1:])
+                                       for _ in range(jc.n_layers)])
+        model = tmodels.params_from_jax(jp, tc, device="cpu")
+        out, report = compress_params(seed, model, rank=4)
+        jout, jrep = jcompress.compress_params(
+            jax.random.key(seed), jax.tree.map(jnp.asarray, jp), rank=4)
+        assert not report["blocks.*.mixer.wq"]["compressed"]
+        assert report["blocks.*.mlp.w_up"]["compressed"]
+        assert len(report) == len(jrep) == 7
+        assert not jrep["['blocks'][0]['mixer']['wq']"]["compressed"]
+        assert jrep["['blocks'][0]['mlp']['w_up']"]["compressed"]
+        for i in range(tc.n_layers):
+            assert isinstance(out.blocks[i].mlp.w_up, LowRankWeight)
+            assert isinstance(out.blocks[i].mixer.wq, torch.nn.Parameter)
+        assert sorted(r["compressed"] for r in report.values()) == \
+            sorted(r["compressed"] for r in jrep.values())
+        assert compression_report(report) == compression_report(jrep)
 
 
 def test_compress_module_sets_a_factor_in_a_copy(models):
@@ -488,5 +535,6 @@ def test_low_rank_targets_lists_projections(models):
     names = low_rank_targets(model)
     assert "blocks.0.mixer.wq" in names and "blocks.1.mlp.w_down" in names
     assert not any("scale" in n or "embed" in n for n in names)
-    # the reference names one stacked leaf where the port names one a layer
+    # the reference stacks each projection over the layers; the port holds
+    # one leaf a layer (compress_params groups them back per projection)
     assert len(names) == 2 * len(jcompress.low_rank_targets(jp))
