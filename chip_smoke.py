@@ -7,11 +7,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and runs,
 in order, printing one JSON line per phase:
 
   1. device   -- the card, its power limit, the build time and the
-                 ``-Xptxas -v`` report of every kernel;
+                 ``-Xptxas -v`` report of every kernel; the tensor-core
+                 instructions of each (``cuobjdump -sass``): DMMA in the f64
+                 kernels of sketch_accum and project_out, none in their f32
+                 kernels, no spills in either;
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
-                 (bit-exact); duplicate-column panels; fwht bit-equal in
+                 (bit-exact), and f64 sketch_accum on an operand 8 bytes off
+                 16-byte alignment (bit-equal to the aligned call);
+                 duplicate-column panels; fwht bit-equal in
                  the real types; tsolve on a pivoted-QR R1 and, by its
                  backward error, on the bench's ill-conditioned R1;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
@@ -69,7 +74,9 @@ in order, printing one JSON line per phase:
                  example refused as a status, and sketch_accum right
                  after the refusal held to its plain version;
   8. times    -- each kernel's time at the main path's shapes beside its
-                 bound, its plain version's time and the library call's
+                 bound (and, as achieved TFLOP/s and bound / time, the
+                 share of it), its plain version's time and the library
+                 call's
                  (flash at granite's serve shape, beside
                  ``F.scaled_dot_product_attention``; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
@@ -120,8 +127,9 @@ TSOLVE_BWD_C = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W) for the bounds of the
 # f64 timings: HBM3 bytes/s, and the FP64 tensor-core rate, the least time
-# the card could take for f64 work (the kernels run DFMA, whose peak is
-# half of it).
+# the card could take for f64 work.  sketch_accum and project_out run f64 on
+# the FP64 tensor cores (DMMA, csrc/dmma_tile.cuh); the other kernels run
+# DFMA, whose peak is half of it.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 67e12
 PEAK_NAME = "FP64 tensor 67 TFLOP/s"
@@ -266,6 +274,8 @@ def main() -> int:
                                                  load_baseline)
         from repro_torch.analysis.runner import CONTROLS, run_all
         from repro_torch.kernels.cgs.kernel import project_out_launch
+        from repro_torch.kernels.sketch_accum.kernel import (
+            sketch_accum_launch)
         from repro_torch.kernels.common import SMEM_BUDGET_BYTES
         from repro_torch.kernels.panel_step.kernel import (factor_launch,
                                                            sweep_launch)
@@ -312,12 +322,37 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
+    # Tensor-core instructions by kernel: DMMA in the f64 kernels of
+    # sketch_accum and project_out, none in their f32 kernels (TF32 would
+    # break eq. (3)), and no spills in any of them.
+    mma_ops = _build.tensor_core_ops(_build.build_info["path"])
     emit({"phase": "device", "ok": True,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_seconds": round(build_s, 3),
-          "ptxas": _build.build_info["ptxas"]})
+          "ptxas": _build.build_info["ptxas"],
+          "tensor_core_ops": {k: v for k, v in mma_ops.items() if v}})
+    dmma_kernels = [f"{name}<{flag}>" for name in (
+        "sketch_accum_dmma_kernel", "project_w_dmma_kernel",
+        "project_o_dmma_kernel") for flag in ("true", "false")]
+    f32_kernels = ["sketch_accum_kernel<float32>", "project_w_kernel<float32>",
+                   "project_o_kernel<float32>"]
+    check(all(mma_ops.get(k) == ["DMMA"] for k in dmma_kernels),
+          f"device: DMMA missing from {dmma_kernels}: {mma_ops}")
+    check(all(k in mma_ops and not mma_ops[k] for k in f32_kernels),
+          f"device: tensor-core instructions in {f32_kernels}: {mma_ops}")
+    redesigned = dmma_kernels + f32_kernels + [
+        f"{name}<{t}>" for name in ("sketch_accum_kernel", "project_w_kernel",
+                                    "project_o_kernel")
+        for t in ("complex64", "complex128")]
+    ptxas = {r["kernel"]: r for r in _build.build_info["ptxas"]}
+    check(all(k in ptxas for k in redesigned),
+          f"device: not in the ptxas report: "
+          f"{[k for k in redesigned if k not in ptxas]}")
+    spills = [ptxas[k] for k in redesigned
+              if ptxas[k].get("spill_stores") or ptxas[k].get("spill_loads")]
+    check(not spills, f"device: spills in {spills}")
 
     def max_abs(got, want) -> float:
         return max(float((u - v).abs().max()) for u, v in zip(got, want))
@@ -350,15 +385,33 @@ def main() -> int:
                                  a[r0:r0 + chunk], acc_c)
         torch.cuda.synchronize()
         chunk_exact = bool(torch.equal(acc_c, got))
+        unaligned = None
+        if dtype == torch.float64:
+            # a on a base 8 bytes off 16: the DMMA kernel's 8-byte copies,
+            # against the 16-byte copies of the aligned call above.
+            a_off = torch.empty(m * n + 1, dtype=dtype, device=dev)[1:]
+            a_off = a_off.view(m, n).copy_(a)
+            got_off = sketch_accum(x, a_off, acc)
+            torch.cuda.synchronize()
+            unaligned = {"a_base_mod_16": a_off.data_ptr() % 16,
+                         "rel_err": rel_err(got_off, want),
+                         "same_bits_as_aligned": bool(torch.equal(got_off, got))}
+            del a_off, got_off
         emit({"phase": "kernels", "kernel": "sketch_accum", "dtype": name,
               "l": l, "m": m, "n": n,
               "reduced": (f"m cut from {MAIN_M} to {m} (phase time)"
                           if m != MAIN_M else None),
               "max_abs_err": float((got - want).abs().max()),
               "rel_err": err, "rel_tol": tol, "chunks": 4,
-              "chunk_invariant_bit_exact": chunk_exact})
+              "chunk_invariant_bit_exact": chunk_exact,
+              "unaligned_operand": unaligned})
         check(err <= tol, f"sketch_accum {name}: rel err {err} > {tol}")
         check(chunk_exact, f"sketch_accum {name}: chunked != one call")
+        if unaligned is not None:
+            check(unaligned["a_base_mod_16"] == 8
+                  and unaligned["rel_err"] <= tol
+                  and unaligned["same_bits_as_aligned"],
+                  f"sketch_accum {name}: unaligned operand {unaligned}")
         if dtype == torch.float64:
             accum_err_f64 = float((got - want).abs().max())
         del x, a, acc, got, want, acc_c
@@ -829,7 +882,9 @@ def main() -> int:
     emit({"phase": "main", "call": "rid(seed, A, 400, sketch_kind='gaussian')",
           **res})
     n_panels = math.ceil(MAIN_K / PANEL)
-    check(res["launches"]["sketch_accum"] >= 1, "main: sketch_accum unused")
+    check(res["launches"]["sketch_accum"] == 1,
+          f"main: sketch_accum launched {res['launches']['sketch_accum']} "
+          f"times, expected 1")
     check(res["launches"]["panel_step"] == n_panels,
           f"main: panel_step launched {res['launches']['panel_step']} "
           f"times, expected {n_panels}")
@@ -1188,13 +1243,15 @@ def main() -> int:
     analysis_s = time.perf_counter() - t0
     analysis_launches = read_counts()
     new, suppressed, stale = diff_against_baseline(report, load_baseline())
-    # Each production kernel's launch at its contract's example shape
-    # (panel_coeff, panel_apply and project_out at their package's), held
-    # to the C side; big_copy's at its 64 MiB example.
+    # Each production kernel's launches at its contract's example shape
+    # (cgs: panel_deflate, then project_out's two f64 launches), and
+    # panel_coeff, panel_apply and the f32 launches of sketch_accum and
+    # project_out at their package's, held to the C side; big_copy's at
+    # its 64 MiB example.
     f32 = torch.float32
     geometry = {name: geometry_report(pkg) for name, pkg in (
         ("sketch_accum", "sketch_accum"), ("panel_step", "panel_step"),
-        ("panel_gram", "panel_gram"), ("panel_deflate", "cgs"),
+        ("panel_gram", "panel_gram"), ("cgs", "cgs"),
         ("sketch_matmul", "sketch_matmul"), ("fwht", "srht"),
         ("tsolve", "tsolve"), ("flash", "flash"))}
     lib = _build.load_library()
@@ -1202,7 +1259,8 @@ def main() -> int:
             ("panel_coeff", (factor_launch(f32, 256, 32),
                              sweep_launch("coeff", f32, 256, 32, 4096))),
             ("panel_apply", (sweep_launch("apply", f32, 256, 32, 4096),)),
-            ("project_out", (project_out_launch(f32, 256, 400, 4096),))):
+            ("sketch_accum(f32)", (sketch_accum_launch(f32, 96, 1024, 512),)),
+            ("project_out(f32)", project_out_launch(f32, 256, 400, 4096))):
         geometry[name] = [hold_launch(ln, lib, SMEM_BUDGET_BYTES)
                           for ln in launches]
     geometry["big_copy"] = [hold_launch(ln, copy_library(),
@@ -1224,7 +1282,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 12 and all(
+    check(len(geometry) == 13 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1292,7 +1350,11 @@ def main() -> int:
         emit({"phase": "times", "kernel": name, "dtype": "float64", **shape,
               "flops": flops, "bytes": nbytes, "peak": PEAK_NAME, **extra,
               **{key: row[key] for key in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")}})
+                                           "bound_ms", "bound_by")},
+              "tflops": flops / row["ms"] / 1e9,
+              "library_tflops": (flops / row["library_ms"] / 1e9
+                                 if row["library_ms"] else None),
+              "bound_over_ms": row["bound_ms"] / row["ms"]})
         return row
 
     x, a = randn((l, m), dtype), randn((m, n), dtype)
@@ -1411,6 +1473,8 @@ def main() -> int:
         lambda: project_out(q, z), lambda: project_out_ref(q, z),
         library_pair(q), 4.0 * l * MAIN_K * n,
         esize * (l * MAIN_K + 2 * l * n), {"l": l, "k": MAIN_K, "n": n})
+    # LAUNCHES counts calls; each call launches W = Q^H Z, then O = Z - Q W.
+    proj["launches_per_call"] = 2
     # W and O (2 l b n each); bytes: Q_p, Z in, O, W out.
     deflate = timed(
         "panel_deflate", "src/repro_torch/csrc/panel_step.cu",

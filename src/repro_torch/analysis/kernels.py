@@ -27,6 +27,7 @@ the declarations against the code:
   ``kernels.geometry-drift``      (on the card) the wrapper's calls of the
                                   C entry points differ from the declared
                                   launches, the C side would launch
+                                  another number of kernels a call, or
                                   another grid, block or shared size, or a
                                   declared kernel uses more than 255
                                   registers or spills (``-Xptxas -v``)
@@ -184,14 +185,16 @@ def _card_checks(pkg: str, base: str, contract, example, over: set,
             findings.append(Finding(
                 "kernels.control-failed", pkg, "no-launch-on-card",
                 "the example ran on the card without launching a kernel"))
+        # One C call per launch declared as the first part of its call.
+        firsts = [ln for ln in launches if ln.part == 0]
         got = []
         for i, (entry, cargs) in enumerate(calls):
-            mask = launches[i].args if i < len(launches) else ()
+            mask = firsts[i].args if i < len(firsts) else ()
             if len(mask) == len(cargs):      # pointers and stream masked
                 cargs = tuple(None if d is None else a
                               for a, d in zip(cargs, mask))
             got.append((entry, tuple(cargs)))
-        want = [(ln.entry, ln.args) for ln in launches]
+        want = [(ln.entry, ln.args) for ln in firsts]
         if got != want:
             findings.append(Finding(
                 "kernels.geometry-drift", pkg, "wrapper-calls",
@@ -208,7 +211,8 @@ def _card_checks(pkg: str, base: str, contract, example, over: set,
             findings.append(Finding(
                 "kernels.geometry-drift", pkg, f"call-{i}-query",
                 f"{ln.entry}{ln.args}: the C side returned status "
-                f"{row['status']} and not one launch for one declared"))
+                f"{row['status']} and not the {ln.parts} launch(es) "
+                f"declared for the call"))
             continue
         if not row["equal"]:
             findings.append(Finding(
@@ -240,12 +244,13 @@ def _card_checks(pkg: str, base: str, contract, example, over: set,
 
 def hold_launch(ln, lib, budget: int) -> dict:
     """One declared launch beside the C side's answer for the same call
-    (``_build.query_launches``, which launches nothing) and the kernel's
-    static attributes; ``equal`` when grid, block and dynamic shared bytes
-    agree.  Needs a card."""
+    (``_build.query_launches``, which launches nothing): the call's
+    launch number ``ln.part``, when the call issues ``ln.parts`` launches,
+    and the kernel's static attributes; ``equal`` when grid, block and
+    dynamic shared bytes agree.  Needs a card."""
     rc, recs = _build.query_launches(
         lib, ln.entry, tuple(_FAKE_PTR if a is None else a for a in ln.args))
-    r = recs[0] if len(recs) == 1 else {}
+    r = recs[ln.part] if len(recs) == ln.parts else {}
     rec = _ptxas(ln.kernel) or {}
     return {"kernel": ln.kernel, "grid": list(ln.grid),
             "threads": ln.threads_per_block, "declared_smem": ln.smem,

@@ -34,7 +34,7 @@ from pathlib import Path
 from ..obs.clock import now
 
 __all__ = ["load_library", "load_extra", "query_launches", "build_info",
-           "check_status", "NVCC_FLAGS"]
+           "check_status", "tensor_core_ops", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC = _PKG / "csrc"
@@ -110,8 +110,8 @@ _TYPE_RE = r"N5repro4cplxI[fd]EE|13__nv_bfloat16|f|d"
 
 def _short_name(mangled: str) -> str:
     """``panel_sweep_kernel<float64,true,false>`` from the mangled entry
-    name (element types, then any bool or int template arguments)."""
-    m = re.search(rf"\d([a-z_]+_kernel)I((?:{_TYPE_RE})+)"
+    name (any element types, then any bool or int template arguments)."""
+    m = re.search(rf"\d([a-z_]+_kernel)I((?:{_TYPE_RE})*)"
                   r"((?:Lb[01]E|Li\d+E)*)E", mangled)
     if not m:
         return mangled
@@ -143,6 +143,29 @@ def parse_ptxas(log: str) -> list[dict]:
             s = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(s.group(1)) if s else 0
     return out
+
+
+def tensor_core_ops(lib_path: str) -> dict:
+    """The tensor-core instructions (SASS opcodes ending in ``MMA``:
+    ``DMMA``, ``HMMA``, ``HGMMA``, ...) of every kernel in the built
+    library ``lib_path``, by the kernel's short name, from ``cuobjdump
+    -sass`` (beside nvcc).  A kernel without any maps to ``[]``."""
+    cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], check=True,
+                          stdout=subprocess.PIPE, text=True).stdout
+    ops: dict = {}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = ops.setdefault(_short_name(m.group(1)), set())
+            continue
+        # /*0a30*/  @!P0 DMMA.8x8x4 R24, R136, R120, R24 ;  /* 0x... */
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9]*)",
+                     line)
+        if cur is not None and m and m.group(1).endswith("MMA"):
+            cur.add(m.group(1))
+    return {name: sorted(found) for name, found in ops.items()}
 
 
 def _compile(dest: Path, sources: list[Path]) -> str:
@@ -232,7 +255,8 @@ def load_extra(name: str, sources: list[Path],
 
 
 # Fields of one record of the geometry query (csrc/common.cuh, launch), and
-# the most records one query keeps (a C entry point launches one kernel).
+# the most records one query keeps (a C entry point launches one or two
+# kernels).
 QUERY_FIELDS = ("gx", "gy", "gz", "bx", "by", "bz", "smem", "static_smem",
                 "registers", "local_bytes", "max_threads")
 _QUERY_CAP = 8

@@ -20,7 +20,10 @@ import torch
 __all__ = ["cdiv", "round_up", "pad_to", "acc_dtype_for", "KERNEL_DTYPES",
            "LaunchCounter", "dtype_code", "check_kernel_args", "type_name",
            "Launch", "Example", "KernelContract", "SMEM_BUDGET_BYTES",
-           "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_grid"]
+           "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_grid", "gemm_tile",
+           "DMMA_BM", "DMMA_BN", "DMMA_BK", "DMMA_THREADS", "DMMA_WM",
+           "DMMA_WN", "DMMA_ACCS", "dmma_smem_bytes", "product_tile",
+           "raster_grid"]
 
 # Hopper (sm_90): the most dynamic shared memory one block may opt in to
 # (227 KiB), and the most threads a block may have.
@@ -114,10 +117,52 @@ _GEMM_TILE = {torch.float32: (8, 8), torch.float64: (4, 8),
               torch.complex64: (4, 4), torch.complex128: (4, 4)}
 
 
-def gemm_grid(dtype: torch.dtype, l: int, n: int) -> tuple:
-    """Grid of the tiled GEMM for an (l, n) output (``gemm_grid<T>``)."""
+def gemm_tile(dtype: torch.dtype) -> tuple:
+    """(BM, BN): the output tile of one block of the tiled GEMM."""
     tm, tn = _GEMM_TILE[dtype]
-    return (cdiv(n, GEMM_THREADS[0] * tn), cdiv(l, GEMM_THREADS[1] * tm), 1)
+    return (GEMM_THREADS[1] * tm, GEMM_THREADS[0] * tn)
+
+
+def gemm_grid(dtype: torch.dtype, l: int, n: int) -> tuple:
+    """Grid of the tiled GEMM for an (l, n) output (``gemm_grid<T>``):
+    column slabs on x, row blocks on y."""
+    bm, bn = gemm_tile(dtype)
+    return (cdiv(n, bn), cdiv(l, bm), 1)
+
+
+def raster_grid(rows: int, cols: int, tile: tuple) -> tuple:
+    """Grid of (BM, BN) = ``tile`` output tiles over a (rows, cols)
+    output with the row blocks the fastest index: ``blockIdx.x`` over
+    ``ceil(rows / BM)``, ``blockIdx.y`` over ``ceil(cols / BN)`` (CUDA
+    allows 65535 there; the C entry points refuse more)."""
+    return (cdiv(rows, tile[0]), cdiv(cols, tile[1]), 1)
+
+
+# The FP64 tensor-core tile of csrc/dmma_tile.cuh (the same constexpr
+# names there): a block of DMMA_THREADS threads owns a DMMA_BM x DMMA_BN
+# output tile, each warp DMMA_WM x DMMA_WN of it with DMMA_ACCS f64
+# accumulators a thread, and streams the operands through a ring of
+# shared-memory stages of DMMA_BK depth rows (both operands, 32 KB a
+# stage).  The kernel packages pin these to the header in their contracts.
+DMMA_BM = DMMA_BN = 128
+DMMA_BK = 16
+DMMA_THREADS = 256
+DMMA_WM, DMMA_WN = 64, 32
+DMMA_ACCS = (DMMA_WM // 16) * (DMMA_WN // 8) * 4
+
+
+def dmma_smem_bytes(stages: int, extra: int = 0) -> int:
+    """Dynamic shared bytes of a ring of ``stages`` stages plus ``extra``
+    (``dmma_smem_bytes`` of the header)."""
+    return stages * 2 * DMMA_BM * DMMA_BK * 8 + extra
+
+
+def product_tile(dtype: torch.dtype) -> tuple:
+    """(BM, BN): the output tile one CTA of sketch_accum or project_out
+    owns: the DMMA tile for f64, the register tile for the other types."""
+    if dtype == torch.float64:
+        return (DMMA_BM, DMMA_BN)
+    return gemm_tile(dtype)
 
 
 @dataclass(frozen=True)
@@ -125,8 +170,11 @@ class Launch:
     """One kernel launch that a wrapper issues, as its contract declares
     it: the kernel (by its ``-Xptxas -v`` name), grid, block and dynamic
     shared bytes, and the C entry point call that issues it (``args``
-    with every pointer as ``None``) in the library ``library``.  The
-    analysis pass holds the declaration to that call on the card."""
+    with every pointer as ``None``) in the library ``library``.  One call
+    may issue several launches in order: this is launch ``part`` of the
+    ``parts`` that the call issues (each declared, with the same entry and
+    args).  The analysis pass holds the declaration to that call on the
+    card."""
     kernel: str
     grid: tuple
     threads: tuple
@@ -134,6 +182,8 @@ class Launch:
     entry: str
     args: tuple
     library: str = "kernels"
+    part: int = 0
+    parts: int = 1
 
     @property
     def threads_per_block(self) -> int:

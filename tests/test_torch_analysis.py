@@ -176,6 +176,24 @@ def test_flash_example_sits_close_under_the_budget():
     assert rules(_check_with("flash", tight)) == ["kernels.smem-overflow"]
 
 
+def test_contract_examples_run_the_main_path_type_and_both_project_launches():
+    """sketch_accum's example is its f64 (tensor-core) launch; cgs's runs
+    panel_deflate, then project_out's two launches, declared as parts 0
+    and 1 of one C call."""
+    from repro_torch.kernels.cgs.contract import CONTRACT as CGS
+    from repro_torch.kernels.sketch_accum.contract import CONTRACT as ACC
+    (ln,) = ACC.example().launches
+    assert ln.kernel == "sketch_accum_dmma_kernel<true>"
+    assert (ln.grid, ln.threads, ln.smem) == ((1, 4, 1), (256, 1, 1), 229376)
+    deflate, w, o = CGS.example().launches
+    assert deflate.entry == "repro_panel_deflate" and deflate.parts == 1
+    assert (w.kernel, o.kernel) == ("project_w_dmma_kernel<true>",
+                                    "project_o_dmma_kernel<true>")
+    assert [(w.part, w.parts), (o.part, o.parts)] == [(0, 2), (1, 2)]
+    assert w.entry == o.entry == "repro_project_out" and w.args == o.args
+    assert (w.grid, o.grid) == ((4, 32, 1), (2, 32, 1))
+
+
 def _check_with(pkg, contract, base="repro_torch.kernels"):
     mod = importlib.import_module(f"{base}.{pkg}.contract")
     saved = mod.CONTRACT

@@ -266,3 +266,18 @@ def test_bench_cli_prints_and_records_rows(tmp_path, capsys):
     assert len(rows) == 2 * len(SMALL_GRID)
     assert [r["k"] for r in rows[:len(SMALL_GRID)]] == \
         [c.k for c in SMALL_GRID]
+
+
+# ------------------------------------------------- the DMMA tile's bench
+
+@pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes")])
+def test_bench_dmma_refuses_a_missing_card(parts):
+    from repro_torch.benchmarks import bench_dmma
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        bench_dmma.run("cpu", parts)
+
+
+def test_bench_dmma_cli_refuses_an_unknown_part():
+    from repro_torch.benchmarks import bench_dmma
+    with pytest.raises(SystemExit):
+        bench_dmma.main(["--parts", "variants"])

@@ -19,8 +19,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.benchmarks import bench_qr  # noqa: E402
-from repro_torch.configs import SMALL_GRID  # noqa: E402
+from repro_torch.configs import PAPER_GRID, SMALL_GRID  # noqa: E402
 from repro_torch.kernels import panel_deflate, project_out  # noqa: E402
+from repro_torch.kernels.common import (SMEM_BUDGET_BYTES,  # noqa: E402
+                                        cdiv, dtype_code, product_tile,
+                                        type_name)
 
 DTYPES = ["float32", "float64", "complex64", "complex128"]
 
@@ -129,6 +132,60 @@ def test_cgs_ops_raise_off_the_cpu_without_a_card(call):
         op(torch.ones(8, 2, device="meta"), torch.ones(8, 3, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         raw(torch.ones(8, 2), torch.ones(8, 3))
+
+
+# The paper's Table 3 rows (l = 2k, k, n), the smallest and ragged bases,
+# and the tile edges, for the launch geometry of project_out.
+PROJECT_SHAPES = ([(2 * c.k, c.k, c.n) for c in PAPER_GRID]
+                  + [(8, 1, 5), (3, 1, 1), (100, 60, 130), (127, 100, 129),
+                     (129, 128, 131), (2000, 1000, 700)])
+TORCH_DTYPES = [torch.float32, torch.float64, torch.complex64,
+                torch.complex128]
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("l,k,n", PROJECT_SHAPES)
+def test_project_out_launches_tile_both_products(dtype, l, k, n):
+    """Two launches of one C call, in order: W = Q^H Z over (k, n) output
+    tiles, then O = Z - Q W over (l, n); each with the row blocks the
+    fastest grid index, every tile holding an output element, within the
+    grid limits and one block's shared memory."""
+    from repro_torch.kernels.cgs.kernel import (PROJECT_STAGES,
+                                                project_out_launch)
+    lw, lo = project_out_launch(dtype, l, k, n)
+    bm, bn = product_tile(dtype)
+    for ln, rows, part in ((lw, k, 0), (lo, l, 1)):
+        gx, gy, gz = ln.grid
+        assert (gx, gy, gz) == (cdiv(rows, bm), cdiv(n, bn), 1)
+        assert (gx - 1) * bm < rows <= gx * bm
+        assert (gy - 1) * bn < n <= gy * bn
+        assert gx <= 2 ** 31 - 1 and gy <= 65535
+        assert ln.smem <= SMEM_BUDGET_BYTES and ln.threads_per_block <= 1024
+        assert (ln.part, ln.parts, ln.entry) == (part, 2, "repro_project_out")
+        assert ln.args == (dtype_code(dtype), None, None, None, None, l, k, n,
+                           None)
+    if dtype == torch.float64:
+        assert (bm, bn) == (128, 128)
+        assert (lw.kernel, lo.kernel) == ("project_w_dmma_kernel<true>",
+                                          "project_o_dmma_kernel<true>")
+        assert lw.smem == lo.smem == PROJECT_STAGES * 32768
+    else:
+        assert (lw.kernel, lo.kernel) == (
+            f"project_w_kernel<{type_name(dtype)}>",
+            f"project_o_kernel<{type_name(dtype)}>")
+        assert lw.smem == lo.smem == 0
+
+
+def test_project_out_launches_skip_an_empty_product():
+    """An empty basis (k = 0) launches only O = Z; no rows (l = 0) only
+    W = 0; the geometry says so, as the C side launches."""
+    from repro_torch.kernels.cgs.kernel import project_out_launch
+    f64 = torch.float64
+    (lo,) = project_out_launch(f64, 300, 0, 129)
+    assert lo.kernel.startswith("project_o") and (lo.part, lo.parts) == (0, 1)
+    (lw,) = project_out_launch(f64, 0, 7, 129)
+    assert lw.kernel.startswith("project_w") and lw.grid == (1, 2, 1)
+    assert project_out_launch(torch.float32, 0, 0, 5) == ()
 
 
 # ------------------------------------------------------- split panel loop

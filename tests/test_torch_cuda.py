@@ -91,6 +91,71 @@ def test_cuda_sketch_accum_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l,m,n", [(800, 1024, 300), (130, 1037, 257),
+                                   (100, 777, 129)])
+def test_cuda_sketch_accum_f64_on_dmma_matches_plain_and_replays(l, m, n):
+    """f64 on the FP64 tensor cores: within 1e-10 of the plain version,
+    and chunked calls of 128 and of 384 rows (a nonzero acc carried
+    through) give the bits of one call."""
+    dev = _device()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, a, acc = (_randn(gen, s, f64, dev) for s in ((l, m), (m, n), (l, n)))
+    got = sketch_accum(x, a, acc)
+    assert _rel(got, sketch_accum_ref(x, a, acc)) <= REL_TOL[f64]
+    for chunk in (128, 384):
+        acc_c = acc
+        for r0 in range(0, m, chunk):
+            acc_c = sketch_accum(x[:, r0:r0 + chunk].contiguous(),
+                                 a[r0:r0 + chunk], acc_c)
+        assert torch.equal(acc_c, got), chunk
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_accum_unaligned_operand_gives_the_aligned_bits():
+    """a[1:] of an (m + 1, 129) tensor (odd pitch, base 8 bytes off 16)
+    against its copy, and an even-pitch operand 8 bytes off 16 against the
+    aligned one: the 8-byte copies give the bits of the 16-byte ones."""
+    dev = _device()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l, m = 100, 777
+    x = _randn(gen, (l, m), f64, dev)
+    a_odd = _randn(gen, (m + 1, 129), f64, dev)[1:]
+    assert a_odd.data_ptr() % 16 == 8 and a_odd.is_contiguous()
+    acc = _randn(gen, (l, 129), f64, dev)
+    got = sketch_accum(x, a_odd, acc)
+    assert torch.equal(got, sketch_accum(x, a_odd.clone(), acc))
+    assert _rel(got, sketch_accum_ref(x, a_odd, acc)) <= REL_TOL[f64]
+    a, acc = _randn(gen, (m, 256), f64, dev), _randn(gen, (l, 256), f64, dev)
+    a_off = torch.empty(m * 256 + 1, dtype=f64, device=dev)[1:].view(m, 256)
+    a_off.copy_(a)
+    assert a_off.data_ptr() % 16 == 8
+    assert torch.equal(sketch_accum(x, a_off, acc), sketch_accum(x, a, acc))
+
+
+@pytest.mark.cuda
+def test_cuda_dmma_kernels_run_on_the_tensor_cores_without_spills():
+    """DMMA in every f64 kernel of sketch_accum and project_out, no
+    tensor-core instruction in their f32 kernels (no TF32), and no spills
+    in any of their kernels (cuobjdump -sass, ptxas -v)."""
+    from repro_torch.kernels import _build
+    _device()
+    _build.load_library()
+    ops = _build.tensor_core_ops(_build.build_info["path"])
+    ptxas = {r["kernel"]: r for r in _build.build_info["ptxas"]}
+    for name in ("sketch_accum_dmma_kernel", "project_w_dmma_kernel",
+                 "project_o_dmma_kernel"):
+        for flag in ("true", "false"):
+            assert ops[f"{name}<{flag}>"] == ["DMMA"]
+    for name in ("sketch_accum_kernel", "project_w_kernel", "project_o_kernel"):
+        assert ops[f"{name}<float32>"] == []
+    for kernel, rec in ptxas.items():
+        if kernel.startswith(("sketch_accum", "project_")):
+            assert not rec.get("spill_stores") and not rec.get("spill_loads"), rec
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b", [32, 16, 7, 64])
 def test_cuda_panel_step_matches_plain(dtype, b):
@@ -347,6 +412,24 @@ def test_cuda_project_out_matches_plain(dtype, l, k, n):
     second call (fixed summation order)."""
     dev = _device()
     gen = torch.Generator(device=dev).manual_seed(17)
+    q, z = _orthonormal(gen, l, k, dtype, dev), _randn(gen, (l, n), dtype, dev)
+    before = PROJECT_LAUNCHES.count
+    got = project_out(q, z)
+    assert PROJECT_LAUNCHES.count == before + 1
+    assert _rel(got, project_out_ref(q, z)) <= REL_TOL[dtype]
+    assert torch.equal(project_out(q, z), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,k,n", [(5, 1, 3), (100, 60, 130), (300, 100, 257),
+                                   (2000, 1000, 300)])
+def test_cuda_project_out_two_launches_at_the_tile_edges(dtype, l, k, n):
+    """k = 1, l and k under one 128-row tile, k under it, and the paper's
+    largest basis (k = 1000, l = 2000): one counted call, its two launches
+    within the tolerance of the plain version, the same bits again."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(18)
     q, z = _orthonormal(gen, l, k, dtype, dev), _randn(gen, (l, n), dtype, dev)
     before = PROJECT_LAUNCHES.count
     got = project_out(q, z)

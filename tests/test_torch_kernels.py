@@ -14,11 +14,17 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
-from repro_torch.kernels.common import (acc_dtype_for, cdiv,  # noqa: E402
-                                        pad_to, round_up)
+from repro_torch.configs import PAPER_GRID  # noqa: E402
+from repro_torch.kernels.common import (DMMA_BM, DMMA_BN,  # noqa: E402
+                                        DMMA_THREADS, GEMM_THREADS,
+                                        SMEM_BUDGET_BYTES, acc_dtype_for,
+                                        cdiv, dtype_code, pad_to,
+                                        product_tile, round_up, type_name)
 from repro_torch.kernels.panel_step import panel_step  # noqa: E402
 from repro_torch.kernels.sketch_accum import (ACCUM_BLOCK,  # noqa: E402
                                               sketch_accum)
+from repro_torch.kernels.sketch_accum.kernel import (  # noqa: E402
+    ACCUM_STAGES, sketch_accum_launch)
 
 
 def _t(x):
@@ -122,6 +128,43 @@ def test_sketch_accum_eager_validation():
     with pytest.raises(ValueError, match=r"acc shape \(4, 7\) must be "
                                          r"\(4, 8\)"):
         sketch_accum(torch.ones(4, 64), torch.ones(64, 8), torch.ones(4, 7))
+
+
+# The paper's rows (l = 2k) and ragged small shapes, for the launch
+# geometry of sketch_accum and project_out.
+GEOMETRY_SHAPES = ([(2 * c.k, c.m, c.n) for c in PAPER_GRID]
+                   + [(1, 5, 1), (100, 777, 129), (130, 1037, 257),
+                      (128, 128, 128), (129, 384, 131)])
+TORCH_DTYPES = [torch.float32, torch.float64, torch.complex64,
+                torch.complex128]
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("l,m,n", GEOMETRY_SHAPES)
+def test_sketch_accum_launch_tiles_the_output(dtype, l, m, n):
+    """One CTA per output tile, the row blocks the fastest grid index
+    (blockIdx.x), every tile holding at least one output element, within
+    the grid limits and one block's shared memory; f64 on the DMMA
+    kernel, the others on the register tile."""
+    ln = sketch_accum_launch(dtype, l, m, n)
+    bm, bn = product_tile(dtype)
+    gx, gy, gz = ln.grid
+    assert (gx, gy, gz) == (cdiv(l, bm), cdiv(n, bn), 1)
+    assert (gx - 1) * bm < l <= gx * bm and (gy - 1) * bn < n <= gy * bn
+    assert gx <= 2 ** 31 - 1 and gy <= 65535
+    assert ln.smem <= SMEM_BUDGET_BYTES and ln.threads_per_block <= 1024
+    assert ln.args == (dtype_code(dtype), None, None, None, None, l, m, n,
+                       None)
+    if dtype == torch.float64:
+        assert (bm, bn) == (DMMA_BM, DMMA_BN) == (128, 128)
+        assert ln.kernel == "sketch_accum_dmma_kernel<true>"
+        assert ln.threads == (DMMA_THREADS, 1, 1)
+        # the ring of ACCUM_STAGES stages (32 KB each) and the 128 KB
+        # running tile
+        assert ln.smem == ACCUM_STAGES * 32768 + 131072 == 229376
+    else:
+        assert ln.kernel == f"sketch_accum_kernel<{type_name(dtype)}>"
+        assert ln.smem == 0 and ln.threads == GEMM_THREADS
 
 
 # -------------------------------------------------------------- panel_step
