@@ -9,8 +9,8 @@ in order, printing one JSON line per phase:
   1. device   -- the card, its power limit, the build time and the
                  ``-Xptxas -v`` report of every kernel; the tensor-core
                  instructions of each (``cuobjdump -sass``): DMMA in the f64
-                 kernels of sketch_accum and project_out, none in their f32
-                 kernels, no spills in either;
+                 kernels of sketch_accum, sketch_matmul and project_out, none
+                 in their f32 kernels nor in panel_gram's, no spills in any;
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
@@ -20,7 +20,8 @@ in order, printing one JSON line per phase:
                  the real types; tsolve on a pivoted-QR R1 and, by its
                  backward error, on the bench's ill-conditioned R1;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
-                 n=2^14, both outputs of panel_deflate; flash at granite's
+                 n=2^14, both outputs of panel_deflate; panel_gram's column
+                 split and n = 0 identities (bit for bit); flash at granite's
                  prefill (32 heads, hd 64, S=T=4000, causal) and danube's
                  (32 heads, hd 80, S=T=6144, window 4096), a non-causal
                  and a ragged S != T case, q f32 with k/v bf16 and all f32;
@@ -35,7 +36,8 @@ in order, printing one JSON line per phase:
                  the main path's matrix: launch counts, first and warm wall
                  time, peak memory, eq. (3), pivot overlap with ``rid``;
   6. gram     -- ``panel_parallel_pivoted_qr(Y, 400, group=g,
-                 panel_impl="gram")`` on that sketch, against the fused path;
+                 panel_impl="gram")`` on that sketch, against the fused
+                 path, and its warm wall time;
   7. c128     -- ``rid_distributed(..., qr_impl="panel_parallel")`` on a
                  complex128 ``A`` of 2^14 x 2^14, k=100;
   bench       -- the paper's phase benchmarks (src/repro_torch/benchmarks):
@@ -76,7 +78,7 @@ in order, printing one JSON line per phase:
   8. times    -- each kernel's time at the main path's shapes beside its
                  bound (and, as achieved TFLOP/s and bound / time, the
                  share of it), its plain version's time and the library
-                 call's
+                 call's (panel_gram also with n = 0, the Gram alone)
                  (flash at granite's serve shape, beside
                  ``F.scaled_dot_product_attention``; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
@@ -274,6 +276,9 @@ def main() -> int:
                                                  load_baseline)
         from repro_torch.analysis.runner import CONTROLS, run_all
         from repro_torch.kernels.cgs.kernel import project_out_launch
+        from repro_torch.kernels.panel_gram.kernel import panel_gram_launch
+        from repro_torch.kernels.sketch_matmul.kernel import (
+            sketch_matmul_launch)
         from repro_torch.kernels.sketch_accum.kernel import (
             sketch_accum_launch)
         from repro_torch.kernels.common import SMEM_BUDGET_BYTES
@@ -334,16 +339,25 @@ def main() -> int:
           "ptxas": _build.build_info["ptxas"],
           "tensor_core_ops": {k: v for k, v in mma_ops.items() if v}})
     dmma_kernels = [f"{name}<{flag}>" for name in (
-        "sketch_accum_dmma_kernel", "project_w_dmma_kernel",
-        "project_o_dmma_kernel") for flag in ("true", "false")]
-    f32_kernels = ["sketch_accum_kernel<float32>", "project_w_kernel<float32>",
-                   "project_o_kernel<float32>"]
+        "sketch_accum_dmma_kernel", "sketch_matmul_dmma_kernel",
+        "project_w_dmma_kernel", "project_o_dmma_kernel")
+        for flag in ("true", "false")]
+    # No tensor-core instruction in the f32 GEMMs (TF32 would break eq.
+    # (3)), nor in panel_gram, whose sums are in-order FMA chains.
+    fma_kernels = [f"{name}<float32>" for name in (
+        "sketch_accum_kernel", "sketch_matmul_kernel", "project_w_kernel",
+        "project_o_kernel")] + [
+        f"panel_gram_kernel<{t},{flag},{tj}>" for t in (
+            "float32", "float64", "complex64", "complex128")
+        for flag in ("true", "false")
+        for tj in ((1, 2) if t == "complex128" else (1, 2, 4))]
     check(all(mma_ops.get(k) == ["DMMA"] for k in dmma_kernels),
           f"device: DMMA missing from {dmma_kernels}: {mma_ops}")
-    check(all(k in mma_ops and not mma_ops[k] for k in f32_kernels),
-          f"device: tensor-core instructions in {f32_kernels}: {mma_ops}")
-    redesigned = dmma_kernels + f32_kernels + [
-        f"{name}<{t}>" for name in ("sketch_accum_kernel", "project_w_kernel",
+    check(all(k in mma_ops and not mma_ops[k] for k in fma_kernels),
+          f"device: tensor-core instructions in {fma_kernels}: {mma_ops}")
+    redesigned = dmma_kernels + fma_kernels + [
+        f"{name}<{t}>" for name in ("sketch_accum_kernel",
+                                    "sketch_matmul_kernel", "project_w_kernel",
                                     "project_o_kernel")
         for t in ("complex64", "complex128")]
     ptxas = {r["kernel"]: r for r in _build.build_info["ptxas"]}
@@ -486,7 +500,24 @@ def main() -> int:
             check(same, f"panel_apply {name} b={b}: emit_norms changes O")
             check(bool((coeff[2][::7] == 0).all()),
                   f"panel_coeff {name} b={b}: sentinel columns not clamped")
-            del c, coeff, qp, w, apply, apply_n, gram, checks
+            # panel_gram's own invariants: every element one in-order sum,
+            # so V of z[:, :h] is the first h columns of V (h not on a slab
+            # boundary) and G is the n = 0 call's, bit for bit.
+            h = n // 2 + 37
+            g_h, v_h = panel_gram(c, z[:, :h])
+            g_0, v_0 = panel_gram(c, z[:, :0])
+            torch.cuda.synchronize()
+            split = {"v_split_bit_equal": bool(
+                         torch.equal(v_h, gram[1][:, :h])),
+                     "g_split_bit_equal": bool(torch.equal(g_h, gram[0])),
+                     "g_n0_bit_equal": bool(torch.equal(g_0, gram[0])
+                                            and v_0.shape == (b, 0))}
+            emit({"phase": "kernels", "kernel": "panel_gram",
+                  "check": "column split and n = 0", "dtype": name, "l": l,
+                  "b": b, "n": n, "h": h, **split})
+            check(all(split.values()),
+                  f"panel_gram {name} b={b}: identities {split}")
+            del c, coeff, qp, w, apply, apply_n, gram, checks, g_h, v_h, g_0
         qp, w, r2 = panel_coeff(cdup, z, r2in)
         finite = all(bool(torch.isfinite(t).all()) for t in (qp, w, r2))
         orth = panel_orth(qp)
@@ -516,6 +547,9 @@ def main() -> int:
         want = sketch_matmul_ref(omega, a)
         err, err_abs = rel_err(got, want), float((got - want).abs().max())
         emit({"phase": "kernels", "kernel": "sketch_matmul", "dtype": name,
+              "cuda_kernel": ("sketch_matmul_dmma_kernel"
+                              if dtype == torch.float64
+                              else "sketch_matmul_kernel"),
               "l": l, "m": m, "n": n, "launches_per_call": launches,
               "reduced": (f"m cut from {MAIN_M} to {m} (phase time)"
                           if m != MAIN_M else None),
@@ -803,13 +837,17 @@ def main() -> int:
         gram = panel_parallel_pivoted_qr(Y, k, group=g, panel_impl="gram")
         torch.cuda.synchronize()
         gcounts = read_counts()
+        t0 = time.perf_counter()
+        panel_parallel_pivoted_qr(Y, k, group=g, panel_impl="gram")
+        torch.cuda.synchronize()
+        gram_warm = time.perf_counter() - t0
         same_piv = bool(torch.equal(gram.piv, fused.piv))
         scale = float(Y.abs().max())
         out = {"phase": "gram",
                "call": "panel_parallel_pivoted_qr(Y, 400, group=g, "
                        "panel_impl='gram')",
                "l": l, "n": n, "k": k, "launches": gcounts,
-               "pivots_equal": same_piv,
+               "wall_warm_s": gram_warm, "pivots_equal": same_piv,
                "pivot_set_overlap": len(set(gram.piv.tolist())
                                         & set(fused.piv.tolist())) / k,
                "orth_err_gram": panel_orth(gram.Q),
@@ -1260,7 +1298,11 @@ def main() -> int:
                              sweep_launch("coeff", f32, 256, 32, 4096))),
             ("panel_apply", (sweep_launch("apply", f32, 256, 32, 4096),)),
             ("sketch_accum(f32)", (sketch_accum_launch(f32, 96, 1024, 512),)),
-            ("project_out(f32)", project_out_launch(f32, 256, 400, 4096))):
+            ("project_out(f32)", project_out_launch(f32, 256, 400, 4096)),
+            ("sketch_matmul(f32)", (sketch_matmul_launch(f32, 128, 1024,
+                                                         512),)),
+            ("panel_gram(c128, b=64)", (panel_gram_launch(
+                torch.complex128, 256, 64, 4096),))):
         geometry[name] = [hold_launch(ln, lib, SMEM_BUDGET_BYTES)
                           for ln in launches]
     geometry["big_copy"] = [hold_launch(ln, copy_library(),
@@ -1282,7 +1324,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 13 and all(
+    check(len(geometry) == 15 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1407,14 +1449,17 @@ def main() -> int:
         emit_norms_bound_ms=1e3 * (apply_bytes + esize * n) / HBM_BYTES_PER_S,
         launches_emit_norms=dist_launches["panel_apply(emit_norms)"])
     # G (2 l b^2) and V (2 l b n); bytes: C, Z in, G, V out.
+    z0 = z[:, :0]
     gram = timed(
         "panel_gram", "src/repro_torch/csrc/panel_gram.cu",
         "src/repro/kernels/panel_gram/kernel.py:43",
         gram_launches["panel_gram"], split_err_f64["panel_gram"],
         lambda: panel_gram(c, z), lambda: panel_gram_ref(c, z),
         lambda: c.mH @ torch.cat([c, z], 1), 2.0 * l * b * n + 2.0 * l * b * b,
-        esize * (l * b + l * n + b * b + b * n), shape)
-    del c, z, qp, w, r2in
+        esize * (l * b + l * n + b * b + b * n), shape,
+        gram_alone_ms=cuda_ms(lambda: panel_gram(c, z0), 20),
+        gram_alone_library_ms=cuda_ms(lambda: c.mH @ c, 20))
+    del c, z, z0, qp, w, r2in
     torch.cuda.empty_cache()
 
     # The kernels of the phase benchmarks; launches from the bench phase.
@@ -1427,6 +1472,8 @@ def main() -> int:
         lambda: torch.matmul(omega, a), 2.0 * l * m * n,
         esize * (l * m + m * n + l * n), {"l": l, "m": m, "n": n},
         reps=3, plain_reps=3)
+    matmul.update(cuda_kernel="sketch_matmul_dmma_kernel",
+                  launches_per_call=1)
     del omega
     # m n log2(m) butterfly adds and m n scale multiplies; x read once,
     # the result written once (the split's extra sweep is not counted).

@@ -1,6 +1,7 @@
-// FP64 tensor-core tile for Hopper, shared by sketch_accum (f64) and
-// project_out (f64): one CTA of 8 warps owns a 128 x 128 output tile, each
-// warp 64 x 32 of it as 4 x 4 tiles of mma.sync.aligned.m16n8k4.f64.
+// FP64 tensor-core tile for Hopper, shared by the f64 kernels of
+// sketch_accum, sketch_matmul and project_out: one CTA of 8 warps owns a
+// 128 x 128 output tile, each warp 64 x 32 of it as 4 x 4 tiles of
+// mma.sync.aligned.m16n8k4.f64.
 //
 // DMMA computes in IEEE double precision (this is not TF32), so the
 // kernels keep eq. (3)'s precision.  Each warp's accumulator lives in

@@ -1,14 +1,17 @@
-// Register-tiled GEMM step shared by the sketch kernels (sketch_accum.cu,
-// sketch_matmul.cu) and project_out (cgs.cu): one CTA of kTX x kTY
-// threads owns a BM x BN output tile, each thread a TM x TN micro-tile of
-// rows row0 + ty + kTY*i and columns col0 + tx + kTX*j.
+// Register-tiled GEMM step of the f32, c64 and c128 kernels of
+// sketch_accum (sketch_accum.cu), sketch_matmul (sketch_matmul.cu) and
+// project_out (cgs.cu); their f64 kernels run on the FP64 tensor cores
+// (dmma_tile.cuh).  One CTA of kTX x kTY threads owns a BM x BN output
+// tile, each thread a TM x TN micro-tile of rows row0 + ty + kTY*i and
+// columns col0 + tx + kTX*j.
 //
 // `gemm_tile_mac` adds x[rows, kb:ke] @ a[kb:ke, cols] into the thread's
 // register tile, walking k in order through one shared-memory stage of kBK
 // rows at a time; `gemm_stage_mac` is the product over one loaded stage.
-// Ragged rows, columns and k are loaded as zeros, which add exactly.  The association is fixed by the caller: sketch_accum sums
-// each 128-row block from zero and adds it to its running tile;
-// sketch_matmul runs one sum over all of m.
+// Ragged rows, columns and k are loaded as zeros, which add exactly.  The
+// association is fixed by the caller: sketch_accum sums each 128-row block
+// from zero and adds it to its running tile; sketch_matmul runs one sum
+// over all of m.  The callers lay out their own grids.
 #pragma once
 
 #include "common.cuh"
@@ -82,12 +85,6 @@ __device__ __forceinline__ void gemm_tile_mac(
     gemm_stage_mac<T>(acc, sm);
     __syncthreads();
   }
-}
-
-template <class T>
-dim3 gemm_grid(int64_t l, int64_t n) {
-  return dim3(static_cast<unsigned>((n + GemmShape<T>::BN - 1) / GemmShape<T>::BN),
-              static_cast<unsigned>((l + GemmShape<T>::BM - 1) / GemmShape<T>::BM));
 }
 
 }  // namespace repro

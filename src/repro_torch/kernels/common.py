@@ -20,7 +20,7 @@ import torch
 __all__ = ["cdiv", "round_up", "pad_to", "acc_dtype_for", "KERNEL_DTYPES",
            "LaunchCounter", "dtype_code", "check_kernel_args", "type_name",
            "Launch", "Example", "KernelContract", "SMEM_BUDGET_BYTES",
-           "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_grid", "gemm_tile",
+           "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_tile",
            "DMMA_BM", "DMMA_BN", "DMMA_BK", "DMMA_THREADS", "DMMA_WM",
            "DMMA_WN", "DMMA_ACCS", "dmma_smem_bytes", "product_tile",
            "raster_grid"]
@@ -123,13 +123,6 @@ def gemm_tile(dtype: torch.dtype) -> tuple:
     return (GEMM_THREADS[1] * tm, GEMM_THREADS[0] * tn)
 
 
-def gemm_grid(dtype: torch.dtype, l: int, n: int) -> tuple:
-    """Grid of the tiled GEMM for an (l, n) output (``gemm_grid<T>``):
-    column slabs on x, row blocks on y."""
-    bm, bn = gemm_tile(dtype)
-    return (cdiv(n, bn), cdiv(l, bm), 1)
-
-
 def raster_grid(rows: int, cols: int, tile: tuple) -> tuple:
     """Grid of (BM, BN) = ``tile`` output tiles over a (rows, cols)
     output with the row blocks the fastest index: ``blockIdx.x`` over
@@ -158,8 +151,9 @@ def dmma_smem_bytes(stages: int, extra: int = 0) -> int:
 
 
 def product_tile(dtype: torch.dtype) -> tuple:
-    """(BM, BN): the output tile one CTA of sketch_accum or project_out
-    owns: the DMMA tile for f64, the register tile for the other types."""
+    """(BM, BN): the output tile one CTA of sketch_accum, sketch_matmul
+    or project_out owns: the DMMA tile for f64, the register tile for the
+    other types."""
     if dtype == torch.float64:
         return (DMMA_BM, DMMA_BN)
     return gemm_tile(dtype)

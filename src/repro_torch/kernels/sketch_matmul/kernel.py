@@ -7,16 +7,31 @@ order with one running sum, so the result is deterministic (no split-K, no
 atomics).  Complex types run in complex arithmetic in the same single
 launch; ragged ``l``, ``m`` and ``n`` are masked in the kernel, so ``a`` is
 never padded or copied.
+
+f64, Table 2's type, runs on the FP64 tensor cores (``csrc/dmma_tile.cuh``:
+128 x 128 tiles of 256 threads, the accumulator in registers, a ring of
+``MATMUL_STAGES`` cp.async stages); f32, c64 and c128 run the FFMA/DFMA
+register tile (``gemm_tile``).  Both grids put the row blocks on
+``blockIdx.x``, the fastest index.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import check_status, load_library
-from ..common import (GEMM_THREADS, Launch, LaunchCounter, check_kernel_args,
-                      dtype_code, gemm_grid, type_name)
+# The DMMA tile's constants are attributes here so that the contract can
+# pin them to csrc/dmma_tile.cuh.
+from ..common import (DMMA_BK, DMMA_BM, DMMA_BN,  # noqa: F401
+                      DMMA_THREADS, GEMM_THREADS, Launch, LaunchCounter,
+                      check_kernel_args, dmma_smem_bytes, dtype_code,
+                      product_tile, raster_grid, type_name)
 
-__all__ = ["sketch_matmul_kernel", "sketch_matmul_launch", "LAUNCHES"]
+__all__ = ["MATMUL_STAGES", "sketch_matmul_kernel", "sketch_matmul_launch",
+           "LAUNCHES"]
+
+# Stages of the f64 kernel's cp.async ring (kMatmulStages): 7 x 32 KB fill
+# 229376 of the 232448 bytes a block may have.
+MATMUL_STAGES = 7
 
 LAUNCHES = LaunchCounter("sketch_matmul")
 
@@ -24,11 +39,19 @@ LAUNCHES = LaunchCounter("sketch_matmul")
 def sketch_matmul_launch(dtype: torch.dtype, l: int, m: int,
                          n: int) -> Launch:
     """The launch for ``omega`` (l, m), ``a`` (m, n): one CTA per output
-    tile, no dynamic shared memory."""
-    return Launch(f"sketch_matmul_kernel<{type_name(dtype)}>",
-                  gemm_grid(dtype, l, n), GEMM_THREADS, 0,
-                  "repro_sketch_matmul",
-                  (dtype_code(dtype), None, None, None, l, m, n, None))
+    tile, row blocks on ``blockIdx.x``.  f64: the DMMA kernel, its ring in
+    dynamic shared memory, with 16-byte copies (the C side takes its twin
+    ``<false>``, of the same geometry, with 8-byte copies when ``omega`` or
+    ``a`` is not 16-byte aligned or has an odd pitch); the other types: the
+    register tile, static shared memory only."""
+    grid = raster_grid(l, n, product_tile(dtype))
+    args = (dtype_code(dtype), None, None, None, l, m, n, None)
+    if dtype == torch.float64:
+        return Launch("sketch_matmul_dmma_kernel<true>", grid,
+                      (DMMA_THREADS, 1, 1), dmma_smem_bytes(MATMUL_STAGES),
+                      "repro_sketch_matmul", args)
+    return Launch(f"sketch_matmul_kernel<{type_name(dtype)}>", grid,
+                  GEMM_THREADS, 0, "repro_sketch_matmul", args)
 
 
 def sketch_matmul_kernel(omega: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

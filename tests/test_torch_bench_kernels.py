@@ -270,7 +270,8 @@ def test_bench_cli_prints_and_records_rows(tmp_path, capsys):
 
 # ------------------------------------------------- the DMMA tile's bench
 
-@pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes")])
+@pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes"),
+                                   ("gram",)])
 def test_bench_dmma_refuses_a_missing_card(parts):
     from repro_torch.benchmarks import bench_dmma
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -281,3 +282,16 @@ def test_bench_dmma_cli_refuses_an_unknown_part():
     from repro_torch.benchmarks import bench_dmma
     with pytest.raises(SystemExit):
         bench_dmma.main(["--parts", "variants"])
+
+
+def test_bench_dmma_parity_holds_gram_rows_to_an_earlier_run():
+    """Each gram row is bit-equal only where the earlier run has a row at
+    the same (dtype, l, b, n) with both digests; other rows are ignored."""
+    from repro_torch.benchmarks.bench_dmma import parity
+    row = {"what": "gram", "kernel": "panel_gram", "dtype": "float64",
+           "l": 800, "b": 32, "n": 16384, "g_sha256": "g", "v_sha256": "v"}
+    other = {"what": "kernel", "kernel": "sketch_matmul"}
+    assert [r["bit_equal"] for r in parity([row, other], [other, row])] == [True]
+    assert not parity([row], [dict(row, v_sha256="w")])[0]["bit_equal"]
+    assert not parity([row], [dict(row, b=16)])[0]["bit_equal"]
+    assert parity([other], [row]) == []

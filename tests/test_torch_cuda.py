@@ -314,6 +314,129 @@ def test_cuda_sketch_matmul_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_sketch_matmul_f64_unaligned_operands_give_the_aligned_bits():
+    """f64 on the DMMA tile: a[1:] of an (m + 1, 129) tensor (odd pitch,
+    base 8 bytes off 16) within tolerance and deterministic; an even-pitch
+    a, and omega, each 8 bytes off 16-byte alignment (the <false> twin's
+    8-byte copies) give the bits of the aligned operands."""
+    dev = _device()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(15)
+    l, m = 100, 778
+    omega = _randn(gen, (l, m), f64, dev)
+    a_odd = _randn(gen, (m + 1, 129), f64, dev)[1:]
+    assert a_odd.data_ptr() % 16 == 8 and a_odd.is_contiguous()
+    got = sketch_matmul(omega, a_odd)
+    assert torch.equal(got, sketch_matmul(omega, a_odd.clone()))
+    assert _rel(got, sketch_matmul_ref(omega, a_odd)) <= REL_TOL[f64]
+    a = _randn(gen, (m, 256), f64, dev)
+    want = sketch_matmul(omega, a)
+    om_off = torch.empty(l * m + 1, dtype=f64, device=dev)[1:].view(l, m)
+    a_off = torch.empty(m * 256 + 1, dtype=f64, device=dev)[1:].view(m, 256)
+    om_off.copy_(omega)
+    a_off.copy_(a)
+    assert om_off.data_ptr() % 16 == 8 and a_off.data_ptr() % 16 == 8
+    for om, x in ((om_off, a), (omega, a_off), (om_off, a_off)):
+        assert torch.equal(sketch_matmul(om, x), want)
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_matmul_f64_at_the_paper_l_is_deterministic():
+    """l = 800 (a ragged 7th row block of 32 rows), ragged m and n: one
+    launch a call, within tolerance of the plain version, and two calls
+    give the same bits (one in-order sum, no split-K, no atomics)."""
+    dev = _device()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(16)
+    l, m, n = 800, 4100, 1000
+    omega, a = _randn(gen, (l, m), f64, dev), _randn(gen, (m, n), f64, dev)
+    before = MATMUL_LAUNCHES.count
+    got = sketch_matmul(omega, a)
+    again = sketch_matmul(omega, a)
+    assert MATMUL_LAUNCHES.count == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, sketch_matmul_ref(omega, a)) <= REL_TOL[f64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sketch_matmul_refuses_more_than_65535_column_slabs(dtype):
+    """The grid puts column slabs on blockIdx.y: n = 65535 BN + 1 is
+    refused as a status (raised, nothing launched), n = 65535 BN runs."""
+    from repro_torch.kernels.common import product_tile
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bn = product_tile(dtype)[1]
+    omega = _randn(gen, (1, 2), dtype, dev)
+    a = _randn(gen, (2, 65535 * bn + 1), dtype, dev)
+    before = MATMUL_LAUNCHES.count
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        sketch_matmul(omega, a)
+    assert MATMUL_LAUNCHES.count == before
+    a = a[:, :65535 * bn].contiguous()
+    assert _rel(sketch_matmul(omega, a), sketch_matmul_ref(omega, a)) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 7, 32, 64])
+def test_cuda_panel_gram_identities(dtype, b):
+    """n smaller than one slab and n over several (l = 200: a ragged last
+    chunk of 8 rows): G and V within tolerance of the plain version; V of
+    z[:, :h] is the first h columns of V, and G the n = 0 call's G, bit for
+    bit; a c or z 4 or 8 bytes off 16-byte alignment (the <T, false> twin)
+    gives the same bits."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    l = 200
+    c = _randn(gen, (l, b), dtype, dev)
+    g0, v0 = panel_gram(c, torch.empty((l, 0), dtype=dtype, device=dev))
+    assert v0.shape == (b, 0)
+    assert _rel(g0, panel_gram_ref(c, c[:, :0])[0]) <= REL_TOL[dtype]
+    for n, cuts in ((37, (0, 1, 13)), (301, (1, 64, 128, 129, 200))):
+        z = _randn(gen, (l, n), dtype, dev)
+        g, v = panel_gram(c, z)
+        wg, wv = panel_gram_ref(c, z)
+        assert _rel(g, wg) <= REL_TOL[dtype] and _rel(v, wv) <= REL_TOL[dtype]
+        assert torch.equal(g, g0)
+        for h in cuts:
+            gh, vh = panel_gram(c, z[:, :h])
+            assert torch.equal(gh, g0) and torch.equal(vh, v[:, :h]), h
+        item = c.element_size()
+        if item < 16:
+            c_off = torch.empty(l * b + 1, dtype=dtype, device=dev)[1:].view(l, b)
+            z_off = torch.empty(l * n + 1, dtype=dtype, device=dev)[1:].view(l, n)
+            c_off.copy_(c)
+            z_off.copy_(z)
+            assert c_off.data_ptr() % 16 == item % 16
+            for cc, zz in ((c_off, z), (c, z_off)):
+                gu, vu = panel_gram(cc, zz)
+                assert torch.equal(gu, g) and torch.equal(vu, v)
+
+
+@pytest.mark.cuda
+def test_cuda_sketch_matmul_and_panel_gram_instructions_without_spills():
+    """DMMA in both f64 kernels of sketch_matmul, no tensor-core
+    instruction in its f32 kernel (no TF32) nor in any panel_gram kernel
+    (its sums are in-order FMA chains), no spills in any of them
+    (cuobjdump -sass, ptxas -v)."""
+    from repro_torch.kernels import _build
+    _device()
+    _build.load_library()
+    ops = _build.tensor_core_ops(_build.build_info["path"])
+    ptxas = {r["kernel"]: r for r in _build.build_info["ptxas"]}
+    for flag in ("true", "false"):
+        assert ops[f"sketch_matmul_dmma_kernel<{flag}>"] == ["DMMA"]
+    assert ops["sketch_matmul_kernel<float32>"] == []
+    # <T, copy width, columns a lane>: 1, 2, 4 for three types, 1, 2 for c128
+    gram = [k for k in ops if k.startswith("panel_gram_kernel<")]
+    assert len(gram) == 2 * (3 * 3 + 2) and all(ops[k] == [] for k in gram)
+    for kernel, rec in ptxas.items():
+        if kernel.startswith(("sketch_matmul", "panel_gram")):
+            assert not rec.get("spill_stores") and not rec.get("spill_loads"), rec
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [1, 2, 64, 256, 512, 8192, 2 ** 16, 2 ** 18])
 def test_cuda_fwht_matches_plain(dtype, m):

@@ -18,13 +18,19 @@ from repro_torch.configs import PAPER_GRID  # noqa: E402
 from repro_torch.kernels.common import (DMMA_BM, DMMA_BN,  # noqa: E402
                                         DMMA_THREADS, GEMM_THREADS,
                                         SMEM_BUDGET_BYTES, acc_dtype_for,
-                                        cdiv, dtype_code, pad_to,
-                                        product_tile, round_up, type_name)
+                                        cdiv, dmma_smem_bytes, dtype_code,
+                                        gemm_tile, pad_to, product_tile,
+                                        round_up, type_name)
 from repro_torch.kernels.panel_step import panel_step  # noqa: E402
 from repro_torch.kernels.sketch_accum import (ACCUM_BLOCK,  # noqa: E402
                                               sketch_accum)
 from repro_torch.kernels.sketch_accum.kernel import (  # noqa: E402
     ACCUM_STAGES, sketch_accum_launch)
+from repro_torch.kernels.sketch_matmul.kernel import (  # noqa: E402
+    MATMUL_STAGES, sketch_matmul_launch)
+from repro_torch.kernels.panel_gram.kernel import (  # noqa: E402
+    GRAM_ROWS, GRAM_STAGES, GRAM_WARP_ROWS, GRAM_WARPS, gram_cols,
+    gram_warps, panel_gram_launch)
 
 
 def _t(x):
@@ -165,6 +171,72 @@ def test_sketch_accum_launch_tiles_the_output(dtype, l, m, n):
     else:
         assert ln.kernel == f"sketch_accum_kernel<{type_name(dtype)}>"
         assert ln.smem == 0 and ln.threads == GEMM_THREADS
+
+
+def test_sketch_matmul_f64_launch_is_the_dmma_kernel_at_the_paper_row():
+    """Table 2's row (f64, l=800, m=2^16, n=2^14): the DMMA kernel, row
+    blocks fastest (7 of 128 rows, 128 slabs of 128 columns), a ring of
+    MATMUL_STAGES 32 KB stages within one block's shared memory."""
+    ln = sketch_matmul_launch(torch.float64, 800, 2 ** 16, 2 ** 14)
+    assert ln.kernel == "sketch_matmul_dmma_kernel<true>"
+    assert ln.grid == (7, 128, 1) and ln.threads == (DMMA_THREADS, 1, 1)
+    assert ln.smem == dmma_smem_bytes(MATMUL_STAGES) <= SMEM_BUDGET_BYTES
+    assert MATMUL_STAGES >= 6 and ln.smem == MATMUL_STAGES * 32768
+    assert ln.entry == "repro_sketch_matmul"
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("l,m,n", GEOMETRY_SHAPES)
+def test_sketch_matmul_launch_tiles_the_output(dtype, l, m, n):
+    """One CTA per output tile, row blocks on blockIdx.x, every tile
+    holding an output element, within the grid limits; f64 on the DMMA
+    tile, f32, c64 and c128 on the register tile (never the tensor cores:
+    no TF32 for f32)."""
+    ln = sketch_matmul_launch(dtype, l, m, n)
+    bm, bn = product_tile(dtype)
+    gx, gy, gz = ln.grid
+    assert (gx, gy, gz) == (cdiv(l, bm), cdiv(n, bn), 1)
+    assert (gx - 1) * bm < l <= gx * bm and (gy - 1) * bn < n <= gy * bn
+    assert gy <= 65535 and ln.smem <= SMEM_BUDGET_BYTES
+    assert ln.args == (dtype_code(dtype), None, None, None, l, m, n, None)
+    if dtype == torch.float64:
+        assert ln.kernel == "sketch_matmul_dmma_kernel<true>"
+        assert (bm, bn) == (DMMA_BM, DMMA_BN)
+    else:
+        assert ln.kernel == f"sketch_matmul_kernel<{type_name(dtype)}>"
+        assert (bm, bn) == gemm_tile(dtype)
+        assert ln.smem == 0 and ln.threads == GEMM_THREADS
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("b", [1, 7, 16, 32, 64])
+@pytest.mark.parametrize("n", [0, 1, 300, 2 ** 14])
+def test_panel_gram_launch_covers_c_and_z(dtype, b, n):
+    """CTA 0 for the Gram (its operand C, b <= one CTA's columns), one CTA
+    per slab of Z after it, so the grid covers the b + n columns of
+    [C | Z]; a row group of warps per GRAM_WARP_ROWS panel columns, column
+    groups of 32 tj columns tiling the slab, at most GRAM_WARPS warps; the
+    ring within one block's shared memory, the widest case (c128, b = 64)
+    included."""
+    ln = panel_gram_launch(dtype, 800, b, n)
+    nc = gram_cols(dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    bp = round_up(b, GRAM_WARP_ROWS)
+    assert b <= nc and ln.grid == (1 + cdiv(n, nc), 1, 1)
+    assert (ln.grid[0] - 1) * nc >= n > (ln.grid[0] - 2) * nc or n == 0
+    gp, gc, tj = gram_warps(dtype, b)
+    assert gp * GRAM_WARP_ROWS == bp and gc * 32 * tj == nc
+    assert ln.threads == (32 * gp * gc, 1, 1)
+    assert 32 <= ln.threads_per_block <= 32 * GRAM_WARPS
+    assert ln.smem == item * GRAM_STAGES * GRAM_ROWS * (bp + nc)
+    assert ln.smem <= SMEM_BUDGET_BYTES
+    assert ln.kernel == f"panel_gram_kernel<{type_name(dtype)},true,{tj}>"
+    assert ln.args == (dtype_code(dtype), None, None, None, None, 800, b, n,
+                       None)
+    if dtype == torch.complex128 and b == 64:
+        assert ln.smem == 196608
+    if dtype == torch.float64 and b == 32 and n == 2 ** 14:
+        assert ln.grid == (129, 1, 1) and (gp, gc, tj) == (4, 2, 2)
 
 
 # -------------------------------------------------------------- panel_step
