@@ -9,8 +9,10 @@ in order, printing one JSON line per phase:
   1. device   -- the card, its power limit, the build time and the
                  ``-Xptxas -v`` report of every kernel; the tensor-core
                  instructions of each (``cuobjdump -sass``): DMMA in the f64
-                 kernels of sketch_accum, sketch_matmul and project_out, none
-                 in their f32 kernels nor in panel_gram's, no spills in any;
+                 kernels of sketch_accum, sketch_matmul, project_out and
+                 panel_deflate, none in their f32 kernels nor in
+                 panel_gram's, the TF32 HMMA in every flash kernel, no
+                 spills in any;
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
@@ -20,11 +22,14 @@ in order, printing one JSON line per phase:
                  the real types; tsolve on a pivoted-QR R1 and, by its
                  backward error, on the bench's ill-conditioned R1;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
-                 n=2^14, both outputs of panel_deflate; panel_gram's column
-                 split and n = 0 identities (bit for bit); flash at granite's
-                 prefill (32 heads, hd 64, S=T=4000, causal) and danube's
-                 (32 heads, hd 80, S=T=6144, window 4096), a non-causal
-                 and a ragged S != T case, q f32 with k/v bf16 and all f32;
+                 n=2^14, both outputs of panel_deflate, and panel_deflate
+                 at b = 1, 16, 32, 64, at a ragged l and n, in the
+                 re-reading geometry (l=4000) and its repeat bit for bit;
+                 panel_gram's column split and n = 0 identities (bit for
+                 bit); flash at granite's prefill (32 heads, hd 64,
+                 S=T=4000, causal) and danube's (32 heads, hd 80,
+                 S=T=6144, window 4096), a non-causal, a ragged S != T and
+                 an hd 256 case, q f32 with k/v bf16 and all f32;
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
@@ -70,7 +75,9 @@ in order, printing one JSON line per phase:
                  runs): 0 new findings against the empty baseline, every
                  control present, big_copy launched on that path; every
                  production kernel's declared launch (grid, block, dynamic
-                 shared bytes) equal to the C side's and within 232448 B,
+                 shared bytes) equal to the C side's and within 232448 B
+                 (panel_deflate and flash also at the main path's shapes,
+                 in the re-reading geometry and at a named slab width),
                  big_copy's 64 MiB example over it; then big_copy bit-equal
                  to big_copy_ref at fitting f32 and c128 shapes, its
                  example refused as a status, and sketch_accum right
@@ -80,7 +87,8 @@ in order, printing one JSON line per phase:
                  share of it), its plain version's time and the library
                  call's (panel_gram also with n = 0, the Gram alone)
                  (flash at granite's serve shape, beside
-                 ``F.scaled_dot_product_attention``; big_copy at the
+                 ``F.scaled_dot_product_attention``, its bound two TF32
+                 passes on the tensor cores; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
   9. trace    -- the main path once more: the sketch and the rest timed
                  apart, then one ``rid`` under ``torch.profiler`` (device
@@ -141,10 +149,12 @@ PEAK_NAME = "FP64 tensor 67 TFLOP/s"
 # that grows with the reduction length, far inside these bounds.
 REL_TOL = {"float32": 1e-4, "complex64": 1e-4,
            "float64": 1e-10, "complex128": 1e-10}
-# H100 SXM float32 rate outside the tensor cores, the flash kernel's FFMA
-# (its bound), and the bf16 tensor-core rate (the bound of a later wgmma
-# redesign, reported beside it).
+# H100 SXM float32 rate outside the tensor cores (FFMA), the TF32 tensor-
+# core rate (the flash kernel's products: two TF32 passes a product with
+# f32 q and bf16 k/v, its bound), and the bf16 tensor-core rate (reported
+# beside it).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 # Flash kernel vs plain version, relative to the largest plain entry: f32
 # sums in another order (online softmax in 64-key blocks against a dense
@@ -155,7 +165,8 @@ FLASH_TOL = 1e-5
 FLASH_CASES = (("granite prefill", 32, 4000, 4000, 64, True, None),
                ("danube prefill", 32, 6144, 6144, 80, True, 4096),
                ("non-causal", 32, 1024, 1024, 64, False, None),
-               ("ragged", 32, 1500, 3000, 80, True, None))
+               ("ragged", 32, 1500, 3000, 80, True, None),
+               ("hd 256", 8, 1024, 1024, 256, True, None))
 # The serve phase: granite-3-2b's engine, its long prompts and the chunked
 # cross-check.  Tolerance of the one-shot (flash) against the chunked
 # (dense) prefill's last-token logits, both in bf16 compute through 40
@@ -208,7 +219,8 @@ def main() -> int:
                                       sketch, spectral_error)
         from repro_torch.kernels import _build
         from repro_torch.kernels.cgs import panel_deflate, project_out
-        from repro_torch.kernels.cgs.kernel import DEFLATE_LAUNCHES
+        from repro_torch.kernels.cgs.kernel import (DEFLATE_LAUNCHES,
+                                                    deflate_geometry)
         from repro_torch.kernels.cgs.kernel import (
             LAUNCHES as PROJECT_LAUNCHES)
         from repro_torch.kernels.cgs.ref import (panel_deflate_ref,
@@ -275,7 +287,9 @@ def main() -> int:
         from repro_torch.analysis.report import (diff_against_baseline,
                                                  load_baseline)
         from repro_torch.analysis.runner import CONTROLS, run_all
-        from repro_torch.kernels.cgs.kernel import project_out_launch
+        from repro_torch.kernels.cgs.kernel import (panel_deflate_launch,
+                                                    project_out_launch)
+        from repro_torch.kernels.flash.kernel import flash_launch
         from repro_torch.kernels.panel_gram.kernel import panel_gram_launch
         from repro_torch.kernels.sketch_matmul.kernel import (
             sketch_matmul_launch)
@@ -327,9 +341,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    # Tensor-core instructions by kernel: DMMA in the f64 kernels of
-    # sketch_accum and project_out, none in their f32 kernels (TF32 would
-    # break eq. (3)), and no spills in any of them.
+    # Tensor-core instructions by kernel: DMMA in the f64 kernels of the
+    # ID's GEMMs and panel_deflate, none in their f32 kernels (TF32 would
+    # break eq. (3)), the split-TF32 HMMA in flash, and no spills in any.
     mma_ops = _build.tensor_core_ops(_build.build_info["path"])
     emit({"phase": "device", "ok": True,
           "name": torch.cuda.get_device_name(0),
@@ -351,11 +365,28 @@ def main() -> int:
             "float32", "float64", "complex64", "complex128")
         for flag in ("true", "false")
         for tj in ((1, 2) if t == "complex128" else (1, 2, 4))]
+    # panel_deflate<T, slab width, resident, 16-byte copies>: DMMA in f64,
+    # no tensor-core instruction in f32 (IEEE FFMA, eq. (3)) nor in the
+    # complex types; flash: the TF32 HMMA of its split products.
+    deflate_kernels = {t: [f"panel_deflate_kernel<{t},{nc},{res},{vec}>"
+                           for nc in ((16,) if t == "complex128" else (16, 32))
+                           for res in ("true", "false")
+                           for vec in ("true", "false")]
+                       for t in ("float32", "float64", "complex64",
+                                 "complex128")}
+    dmma_kernels += deflate_kernels["float64"]
+    fma_kernels += [k for t in ("float32", "complex64", "complex128")
+                    for k in deflate_kernels[t]]
+    flash_kernels = [f"flash_fwd_kernel<{q},{kv},{hd}>"
+                     for q in ("float32", "bfloat16")
+                     for kv in ("float32", "bfloat16") for hd in (64, 128, 256)]
     check(all(mma_ops.get(k) == ["DMMA"] for k in dmma_kernels),
           f"device: DMMA missing from {dmma_kernels}: {mma_ops}")
     check(all(k in mma_ops and not mma_ops[k] for k in fma_kernels),
           f"device: tensor-core instructions in {fma_kernels}: {mma_ops}")
-    redesigned = dmma_kernels + fma_kernels + [
+    check(all(mma_ops.get(k) == ["HMMA"] for k in flash_kernels),
+          f"device: the TF32 HMMA missing from {flash_kernels}: {mma_ops}")
+    redesigned = dmma_kernels + fma_kernels + flash_kernels + [
         f"{name}<{t}>" for name in ("sketch_accum_kernel",
                                     "sketch_matmul_kernel", "project_w_kernel",
                                     "project_o_kernel")
@@ -658,7 +689,39 @@ def main() -> int:
         check(launches == 1, f"panel_deflate {name}: {launches} launches")
         if dtype == torch.float64:
             bench_err_f64["panel_deflate"] = err_abs
-        del q, qp, z, got, want, again
+        # panel_deflate's own kernel at other panel widths (b = 1: the panel
+        # padded to 16 columns), a ragged l and n, a 16-column slab (f64 and
+        # c64 at b = 64, f32 at l = 2400, c128 always), the re-reading
+        # geometry (l = 4000: no slab fits one block), each repeated for its
+        # bits.
+        cases = []
+        for b, ll, nn in ((1, l, n), (16, l, n), (64, l, n), (32, 777, 1037),
+                          (32, 2400, 1037), (32, 4000, 2000)):
+            qb = (q[:, :b] if ll == l else
+                  torch.linalg.qr(randn((ll, b), dtype)).Q).contiguous()
+            zb = z if ll == l else randn((ll, nn), dtype)
+            got = panel_deflate(qb, zb)
+            again = panel_deflate(qb, zb)
+            want = panel_deflate_ref(qb, zb)
+            torch.cuda.synchronize()
+            nc, resident = deflate_geometry(dtype, ll, b)
+            cases.append({"b": b, "l": ll, "n": nn, "slab_cols": nc,
+                          "resident": resident,
+                          "rel_err": {key: rel_err(u, v) for key, u, v in
+                                      zip(("o", "w"), got, want)},
+                          "repeat_same_bits": all(
+                              bool(torch.equal(u, v))
+                              for u, v in zip(got, again))})
+            del qb, zb, got, again, want
+        emit({"phase": "kernels", "kernel": "panel_deflate", "dtype": name,
+              "cases": cases, "rel_tol": tol})
+        check(all(max(c["rel_err"].values()) <= tol for c in cases),
+              f"panel_deflate {name}: rel errs {cases} > {tol}")
+        check(all(c["repeat_same_bits"] for c in cases),
+              f"panel_deflate {name}: a repeated call gave other bits")
+        check(not cases[-1]["resident"],
+              f"panel_deflate {name}: l=4000 kept its slab resident")
+        del q, qp, z
         torch.cuda.empty_cache()
 
     # The flash kernel of the LM stack's prefill against its plain version.
@@ -1284,8 +1347,9 @@ def main() -> int:
     # Each production kernel's launches at its contract's example shape
     # (cgs: panel_deflate, then project_out's two f64 launches), and
     # panel_coeff, panel_apply and the f32 launches of sketch_accum and
-    # project_out at their package's, held to the C side; big_copy's at
-    # its 64 MiB example.
+    # project_out at their package's, panel_deflate (f64, resident,
+    # re-reading, 16 columns) and flash (granite's prefill) at the main
+    # path's shapes, held to the C side; big_copy's at its 64 MiB example.
     f32 = torch.float32
     geometry = {name: geometry_report(pkg) for name, pkg in (
         ("sketch_accum", "sketch_accum"), ("panel_step", "panel_step"),
@@ -1302,7 +1366,16 @@ def main() -> int:
             ("sketch_matmul(f32)", (sketch_matmul_launch(f32, 128, 1024,
                                                          512),)),
             ("panel_gram(c128, b=64)", (panel_gram_launch(
-                torch.complex128, 256, 64, 4096),))):
+                torch.complex128, 256, 64, 4096),)),
+            ("panel_deflate(f64, main)", (panel_deflate_launch(
+                torch.float64, 2 * MAIN_K, PANEL, MAIN_N),)),
+            ("panel_deflate(f64, re-reading)", (panel_deflate_launch(
+                torch.float64, 4000, PANEL, 2000),)),
+            ("panel_deflate(f64, 16 columns)", (panel_deflate_launch(
+                torch.float64, 1200, PANEL, MAIN_N),)),
+            ("flash(granite prefill)", (flash_launch(
+                f32, torch.bfloat16, 32, SERVE_LONG[-1], SERVE_LONG[-1],
+                64),))):
         geometry[name] = [hold_launch(ln, lib, SMEM_BUDGET_BYTES)
                           for ln in launches]
     geometry["big_copy"] = [hold_launch(ln, copy_library(),
@@ -1324,7 +1397,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 15 and all(
+    check(len(geometry) == 19 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1524,21 +1597,23 @@ def main() -> int:
     proj["launches_per_call"] = 2
     # W and O (2 l b n each); bytes: Q_p, Z in, O, W out.
     deflate = timed(
-        "panel_deflate", "src/repro_torch/csrc/panel_step.cu",
+        "panel_deflate", "src/repro_torch/csrc/panel_deflate.cu",
         "src/repro/kernels/cgs/kernel.py:74",
         qr_launches["panel_deflate"], bench_err_f64["panel_deflate"],
         lambda: panel_deflate(qp, z), lambda: panel_deflate_ref(qp, z),
         library_pair(qp), 4.0 * l * b * n,
-        esize * (l * b + 2 * l * n + b * n), shape)
+        esize * (l * b + 2 * l * n + b * n), shape,
+        slab_cols=deflate_geometry(dtype, l, b)[0])
     del q, qp, z
     torch.cuda.empty_cache()
 
     # flash at granite's serve shape (the 4000-token prefill: 32 heads, hd
     # 64, causal, q f32 and k/v bf16 as the model passes them); launches
     # from the serve phase.  Operations: 4 hd per live (q, k) pair (q k^T
-    # and p v); bytes: q, k, v read once, o written once.  The library call
-    # is scaled_dot_product_attention on the same inputs in f32 (one dtype),
-    # with q already scaled.
+    # and p v), each product two TF32 passes on the tensor cores (q split
+    # into hi and lo, bf16 k and v exact); bytes: q, k, v read once, o
+    # written once.  The library call is scaled_dot_product_attention on
+    # the same inputs in f32 (one dtype), with q already scaled.
     bh, S, hd = 32, SERVE_LONG[-1], 64
     q = randn((bh, S, hd), torch.float32) * hd ** -0.5
     k = randn((bh, S, hd), torch.float32).to(torch.bfloat16)
@@ -1547,7 +1622,8 @@ def main() -> int:
     pairs = bh * live_pairs(S, S, True, None)
     flash_flops = 4.0 * hd * pairs
     flash_bytes = bh * S * hd * (4 + 2 + 2 + 4)
-    t_flop, t_byte = flash_flops / PEAK_F32_FLOPS, flash_bytes / HBM_BYTES_PER_S
+    t_flop = 2 * flash_flops / PEAK_TF32_FLOPS
+    t_byte = flash_bytes / HBM_BYTES_PER_S
     flash = {"name": "flash", "route": "cuda",
              "source": "src/repro_torch/csrc/flash.cu",
              "replaces": "src/repro/kernels/flash/kernel.py:86",
@@ -1561,9 +1637,11 @@ def main() -> int:
     emit({"phase": "times", "kernel": "flash", "bh": bh, "s": S, "t": S,
           "hd": hd, "causal": True, "q_dtype": "float32",
           "kv_dtype": "bfloat16", "live_pairs": pairs, "flops": flash_flops,
-          "bytes": flash_bytes, "peak": "FP32 67 TFLOP/s",
+          "bytes": flash_bytes, "peak": "TF32 tensor 495 TFLOP/s, 2 passes",
+          "ffma_bound_ms": 1e3 * max(flash_flops / PEAK_F32_FLOPS, t_byte),
           "bf16_tensor_bound_ms": 1e3 * max(flash_flops / PEAK_BF16_FLOPS,
                                             t_byte),
+          "tflops": flash_flops / flash["ms"] / 1e9,
           **{key: flash[key] for key in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}})
     del q, k, v, k4, v4

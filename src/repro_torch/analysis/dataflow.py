@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..core.rng import check_device
 from .registry import EntryPoint, OverlapSpec
 from .report import Finding
 
@@ -192,9 +193,10 @@ class RunEntry:
         return self.entry.name
 
 
-def run_entry(entry: EntryPoint, device="cpu") -> RunEntry:
-    """Build ``entry`` on ``device`` and call it once under the recorders."""
-    device = torch.device(device)
+def run_entry(entry: EntryPoint, device="cuda") -> RunEntry:
+    """Build ``entry`` on ``device`` (the card unless it names the CPU) and
+    call it once under the recorders."""
+    device = check_device(device)
     fn, args = entry.build(device)
     floats = [t for t in _tensors(args)
               if t.dtype.is_floating_point or t.dtype.is_complex]
@@ -361,8 +363,10 @@ ENTRY_RULES = (check_collective_overlap, check_replicated_collective,
                check_dtype_promotion, check_host_transfer)
 
 
-def analyze_entry(entry: EntryPoint, device="cpu") -> list:
-    """Run one registered entry under the recorders and every rule."""
+def analyze_entry(entry: EntryPoint, device="cuda") -> list:
+    """Run one registered entry under the recorders and every rule, on the
+    card unless ``device`` names the CPU (no card raises)."""
+    device = check_device(device)
     if "distributed" in entry.tags and not dist.is_initialized():
         return [Finding("dataflow.control-failed", entry.name, "no-group",
                         "entry needs the default process group and none is "

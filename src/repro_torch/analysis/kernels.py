@@ -52,6 +52,7 @@ from pathlib import Path
 
 import torch
 
+from ..core.rng import check_device
 from ..kernels import _build
 from ..kernels.common import MAX_THREADS_PER_BLOCK, LaunchCounter
 from .report import Finding
@@ -273,11 +274,11 @@ def geometry_report(pkg: str, *, base: str = KERNELS_BASE) -> list:
 
 
 def check_package(pkg: str, *, base: str = KERNELS_BASE,
-                  device="cpu") -> list:
+                  device="cuda") -> list:
     """All contract checks for one ``<base>.<pkg>`` kernel package; the
-    card-side checks run when ``device`` is a CUDA device."""
+    card-side checks run when ``device`` is a CUDA device (the default)."""
     findings = []
-    device = torch.device(device)
+    device = check_device(device)
     try:
         contract = importlib.import_module(f"{base}.{pkg}.contract").CONTRACT
     except (ImportError, AttributeError) as e:
@@ -393,8 +394,10 @@ def check_package(pkg: str, *, base: str = KERNELS_BASE,
     return findings
 
 
-def check_all_kernels(device="cpu") -> tuple:
-    """(findings, packages-checked) across every kernel package."""
+def check_all_kernels(device="cuda") -> tuple:
+    """(findings, packages-checked) across every kernel package, on the
+    card unless ``device`` names the CPU."""
+    device = check_device(device)
     findings, pkgs = [], kernel_packages()
     for pkg in pkgs:
         findings.extend(check_package(pkg, device=device))

@@ -23,6 +23,7 @@ from pathlib import Path
 import torch
 
 from . import registry
+from ..core.rng import check_device
 from .dataflow import analyze_entry
 from .kernels import check_all_kernels, check_package
 from .lint import lint_file, lint_tree
@@ -35,10 +36,11 @@ CONTROLS = ("fixture.serialized-psum", "fixture.overlapped-psum",
             "fixture.bad-server")
 
 
-def run_controls(device="cpu") -> list:
-    """Positive controls: plant a bug, require the alarm."""
+def run_controls(device="cuda") -> list:
+    """Positive controls: plant a bug, require the alarm (on the card
+    unless ``device`` names the CPU)."""
     from .fixtures import BADKERNEL_BASE, FIXTURES
-    device = torch.device(device)
+    device = check_device(device)
     findings = []
 
     planted = analyze_entry(FIXTURES["fixture.serialized-psum"], device)
@@ -159,10 +161,10 @@ def _refusal_control(device) -> list:
     return findings
 
 
-def run_all(*, device="cpu", controls: bool = True) -> Report:
-    """Every pass on ``device`` ('cpu', or a CUDA device for the card-side
-    kernel checks and the entries on the card)."""
-    device = torch.device(device)
+def run_all(*, device="cuda", controls: bool = True) -> Report:
+    """Every pass on ``device``: a CUDA device (the default) for the
+    card-side kernel checks and the entries on the card, or 'cpu'."""
+    device = check_device(device)
     report = Report()
 
     entries = registry.load_entry_points()

@@ -30,8 +30,7 @@
 // tensor cores (TF32 would break eq. (3)).
 //
 // panel_deflate_kernel, the same product for one panel (b <= 64) with W as
-// a second output, is the panel sweep of panel_step.cu
-// (repro_panel_deflate there).
+// a second output, is csrc/panel_deflate.cu.
 #include <type_traits>
 
 #include "dmma_tile.cuh"

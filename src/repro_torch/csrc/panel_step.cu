@@ -1,7 +1,6 @@
 // Panel kernels of the pivoted QR engines, for Hopper.
 //
-// Replaces three TPU kernels of repro/kernels/panel_step/kernel.py, and
-// panel_deflate_kernel of repro/kernels/cgs/kernel.py (see (b)):
+// Replaces three TPU kernels of repro/kernels/panel_step/kernel.py:
 //   panel_step_kernel   -- factor the candidate panel C (l x b) with
 //                          CholeskyQR2 and sweep the residual Z (l x n):
 //                          W = Q_p^H Z, O = Z - Q_p W, colnorms^2(O);
@@ -28,9 +27,6 @@
 //       downdate max(r2 - colnorms^2(W), 0) from the unrounded W.
 //   panel_step = (a) + (b)<T, true, true>; panel_coeff = (a) +
 //   (b)<T, true, false>; panel_apply = (b)<T, false, true>.
-//   panel_deflate (the TPU's split-path trailing update: Z - Q_p W and
-//   W = Q_p^H Z for a given orthonormal Q_p) = (b)<T, true, true> with W
-//   stored and no norms (r2 null stops the sweep before them).
 // Every sum runs in a fixed order (no atomics, no split reductions), so the
 // same inputs give the same bits, on every rank of a distributed run.
 //
@@ -45,8 +41,7 @@
 // Bounds at the main path (f64, l=800, b=32, n=2^14), all by bytes:
 // panel_step moves about 210 MB (Z in, O out) for 1.7 GFLOP; panel_coeff
 // 110 MB (Z in, W out) for 0.85 GFLOP; panel_apply 214 MB (Z and W in, O
-// out) for 0.84 GFLOP; panel_deflate 214 MB (Z in, O and W out) for
-// 1.7 GFLOP.
+// out) for 0.84 GFLOP.
 #include "panel_common.cuh"
 
 namespace {
@@ -279,16 +274,6 @@ extern "C" int repro_panel_sweep(int dtype, const void* qp, const void* z,
   if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_step_sweep, qp, z, o, w, r2, l, static_cast<int>(b), n, s);
-}
-
-// panel_deflate: the step sweep on a given Q_p, W stored, no norms.
-extern "C" int repro_panel_deflate(int dtype, const void* qp, const void* z,
-                                   void* o, void* w, int64_t l, int64_t b,
-                                   int64_t n, void* stream) {
-  if (bad_sizes(l, b, n) || w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH(dtype, launch_step_sweep, qp, z, o, w, nullptr, l, static_cast<int>(b), n,
-                 s);
 }
 
 extern "C" int repro_panel_coeff_sweep(int dtype, const void* qp, const void* z,

@@ -110,12 +110,16 @@ _TYPE_RE = r"N5repro4cplxI[fd]EE|13__nv_bfloat16|f|d"
 
 def _short_name(mangled: str) -> str:
     """``panel_sweep_kernel<float64,true,false>`` from the mangled entry
-    name (any element types, then any bool or int template arguments)."""
-    m = re.search(rf"\d([a-z_]+_kernel)I((?:{_TYPE_RE})*)"
+    name (any element types, then any bool or int template arguments).  A
+    type repeated in the arguments is mangled as a substitution
+    (``S1_``): it stands for the type before it."""
+    m = re.search(rf"\d([a-z_]+_kernel)I((?:{_TYPE_RE}|S\d*_)*)"
                   r"((?:Lb[01]E|Li\d+E)*)E", mangled)
     if not m:
         return mangled
-    types = [_TYPE_CODES[t] for t in re.findall(_TYPE_RE, m.group(2))]
+    types = []
+    for t in re.findall(rf"{_TYPE_RE}|S\d*_", m.group(2)):
+        types.append(types[-1] if t.startswith("S") else _TYPE_CODES[t])
     args = [{"b0": "false", "b1": "true"}.get(a, a[1:])
             for a in re.findall(r"L(b[01]|i\d+)E", m.group(3))]
     return f"{m.group(1)}<{','.join(types + args)}>"

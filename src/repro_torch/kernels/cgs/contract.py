@@ -6,7 +6,8 @@ The example makes one call of each wrapper: ``panel_deflate`` (f32, one
 launch) and ``project_out`` (f64, the main path's type: its two launches,
 ``W = Q^H Z`` and ``O = Z - Q W``), so that all three launches are held to
 the C side.  The f64 ring's stage count and the DMMA tile are pinned to
-``csrc/cgs.cu`` and ``csrc/dmma_tile.cuh``.
+``csrc/cgs.cu`` and ``csrc/dmma_tile.cuh``, panel_deflate's block, ring and
+slab width to ``csrc/panel_deflate.cu``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,12 @@ CONTRACT = KernelContract(
            ("panel_deflate", "panel_deflate_ref")),
     example=_example,
     c_constants={"PROJECT_STAGES": ("cgs.cu", "kProjectStages"),
+                 "DEFLATE_THREADS": ("panel_deflate.cu", "kDeflateThreads"),
+                 "DEFLATE_ROWS": ("panel_deflate.cu", "kDeflateRows"),
+                 "DEFLATE_STAGES": ("panel_deflate.cu", "kDeflateStages"),
+                 "DEFLATE_DMMA_STAGES": ("panel_deflate.cu",
+                                         "kDeflateDmmaStages"),
+                 "DEFLATE_COLS": ("panel_deflate.cu", "kDeflateCols"),
                  "DMMA_BM": ("dmma_tile.cuh", "kDmmaBM"),
                  "DMMA_BN": ("dmma_tile.cuh", "kDmmaBN"),
                  "DMMA_BK": ("dmma_tile.cuh", "kDmmaBK"),

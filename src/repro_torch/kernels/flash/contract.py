@@ -2,9 +2,10 @@
 ``repro/kernels/flash/contract.py``; see ``kernels.common.KernelContract``
 for the fields).
 
-The example is at hd 256, the widest head the kernel takes: its q, k, v and
-p tiles ask for 214016 B of shared memory, close under the 232448 B a
-Hopper block may have, so a wider tile would trip ``kernels.smem-overflow``.
+The example is at hd 256 in f32, the widest head the kernel takes and its
+largest tiles: the q tile and two stages of 32-row k and v tiles ask for
+201728 B of shared memory, under the 232448 B a Hopper block may have, so
+a wider tile would trip ``kernels.smem-overflow``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ CONTRACT = KernelContract(
     pairs=(("flash_attention", "flash_ref"),),
     example=_example,
     c_constants={"BQ": ("flash.cu", "kBQ"), "BK": ("flash.cu", "kBK"),
-                 "THREADS": ("flash.cu", "kThreads")},
+                 "BK_WIDE": ("flash.cu", "kBKWide"),
+                 "THREADS": ("flash.cu", "kThreads"),
+                 "STAGES": ("flash.cu", "kStages")},
     bad_call=_bad_call,
 )

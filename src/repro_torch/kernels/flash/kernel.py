@@ -1,11 +1,14 @@
 """Wrapper of the Hopper flash-attention kernel (``csrc/flash.cu``), which
 replaces the TPU kernel ``flash_kernel`` in ``repro/kernels/flash/kernel.py``.
 
-One launch, one CTA per (batch * head, 64-row q block), walking the kv
-blocks of 64 rows in order with an online softmax; kv blocks wholly in the
-causal future or outside the window are skipped before they are loaded.
-q is f32 or bf16, k and v one of the two (the model passes f32 q and bf16
-k, v); sums are f32 FFMA.  S and T are masked in the kernel, not padded.
+One launch, one CTA of 4 warps per (batch * head, 64-row q block), walking
+the live kv blocks (64 rows; 32 for hd > 128) in order with an online
+softmax, k and v through a two-stage cp.async ring; kv blocks wholly in
+the causal future or outside the window are skipped before they are
+loaded.  q is f32 or bf16, k and v one of the two (the model passes f32 q
+and bf16 k, v).  Both products run on the tensor cores in TF32 with f32
+operands split into hi + lo (bf16 operands are exact in TF32), the small
+terms first, sums in f32.  S and T are masked in the kernel, not padded.
 """
 from __future__ import annotations
 
@@ -16,29 +19,51 @@ import torch
 from .._build import check_status, load_library
 from ..common import Launch, LaunchCounter, cdiv, type_name
 
-__all__ = ["flash_attention_kernel", "flash_launch", "LAUNCHES",
+__all__ = ["flash_attention_kernel", "flash_launch", "flash_smem", "LAUNCHES",
            "FLASH_DTYPES", "MAX_HD"]
 
 LAUNCHES = LaunchCounter("flash")
 # Element-type codes of csrc/flash.cu (enum FlashDType), in this order.
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HD = 256
-# Tile of csrc/flash.cu: 64 q rows per CTA, kv blocks of 64 rows, 256
-# threads.
-BQ, BK, THREADS = 64, 64, 256
+# Tile of csrc/flash.cu: 64 q rows per CTA (16 a warp), kv blocks of 64
+# rows (BK_WIDE for hd > 128), 128 threads, a k/v ring of STAGES stages.
+BQ, BK, BK_WIDE, THREADS, STAGES = 64, 64, 32, 128, 2
+
+
+def _pitch_pairs(c: int) -> int:
+    return c + (6 - c % 4) % 4
+
+
+def _pitch_odd(c: int) -> int:
+    return c | 1
+
+
+def flash_smem(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared bytes: the q tile and the ring's k and v tiles, raw,
+    each row padded to a pitch of 16-byte chunks that keeps the warps'
+    fragment reads free of bank conflicts (2 mod 4 chunks for rows read as
+    float2 pairs, f32 q and k; odd for the others)."""
+    f32 = torch.float32
+    qc, kvc = hd * q_dtype.itemsize // 16, hd * kv_dtype.itemsize // 16
+    pq = _pitch_pairs(qc) if q_dtype == f32 else _pitch_odd(qc)
+    pk = _pitch_pairs(kvc) if kv_dtype == f32 else _pitch_odd(kvc)
+    pv = _pitch_odd(kvc)
+    bk = BK_WIDE if hd > 128 else BK
+    return 16 * (BQ * pq + STAGES * bk * (pk + pv))
 
 
 def flash_launch(q_dtype: torch.dtype, kv_dtype: torch.dtype, bh: int,
                  s: int, t: int, hd: int, causal: bool = True,
                  window: Optional[int] = None) -> Launch:
     """The launch for ``q`` (bh, s, hd), ``k`` and ``v`` (bh, t, hd): one
-    CTA per (bh, 64-row q block); the q tile, a k and a v tile (rows of
-    hd + 1 floats) and the 64 x 65 p tile in shared memory."""
-    nj = 4 if hd <= 64 else 8 if hd <= 128 else 16
-    smem = 4 * ((BQ + 2 * BK) * (hd + 1) + BQ * (BK + 1))
+    CTA per (bh, 64-row q block), the kernel instantiated for hd <= 64,
+    128 or 256 (``flash_smem`` for its shared bytes)."""
+    hd_class = 64 if hd <= 64 else 128 if hd <= 128 else 256
     return Launch(f"flash_fwd_kernel<{type_name(q_dtype)},"
-                  f"{type_name(kv_dtype)},{nj}>", (cdiv(s, BQ), bh, 1),
-                  (THREADS, 1, 1), smem, "repro_flash_attention",
+                  f"{type_name(kv_dtype)},{hd_class}>", (cdiv(s, BQ), bh, 1),
+                  (THREADS, 1, 1), flash_smem(q_dtype, kv_dtype, hd),
+                  "repro_flash_attention",
                   (FLASH_DTYPES.index(q_dtype), FLASH_DTYPES.index(kv_dtype),
                    None, None, None, None, bh, s, t, hd, int(causal),
                    -1 if window is None else int(window), None))

@@ -73,7 +73,6 @@ def factor_launch(dtype: torch.dtype, l: int, b: int) -> Launch:
 
 # Sweep variants: template flags (computes W, emits O) and C entry point.
 _SWEEPS = {"step": ("true,true", "repro_panel_sweep", 5),
-           "deflate": ("true,true", "repro_panel_deflate", 4),
            "coeff": ("true,false", "repro_panel_coeff_sweep", 5),
            "apply": ("false,true", "repro_panel_apply", 5)}
 

@@ -49,19 +49,19 @@ def _one_rank(program: str, *args: str, timeout: int = 240) -> str:
 # --------------------------------------- dataflow rules on the fixtures
 
 def test_complex_truncation_fixture_trips_dtype_rule():
-    fs = analyze_entry(FIXTURES["fixture.complex-truncation"])
+    fs = analyze_entry(FIXTURES["fixture.complex-truncation"], device="cpu")
     assert rules(fs) == ["dataflow.dtype-promotion"], fs
     assert [f.key for f in fs] == ["complex-truncation-complex64-to-float32"]
 
 
 def test_f64_leak_fixture_trips_dtype_rule():
-    fs = analyze_entry(FIXTURES["fixture.f64-leak"])
+    fs = analyze_entry(FIXTURES["fixture.f64-leak"], device="cpu")
     assert fs and rules(fs) == ["dataflow.dtype-promotion"], fs
     assert "wide-_to_copy-float64" in {f.key for f in fs}
 
 
 def test_host_transfer_fixture_trips_host_rule():
-    fs = analyze_entry(FIXTURES["fixture.host-transfer"])
+    fs = analyze_entry(FIXTURES["fixture.host-transfer"], device="cpu")
     assert rules(fs) == ["dataflow.host-transfer"], fs
     assert {f.key for f in fs} == {"_local_scalar_dense"}
 
@@ -70,7 +70,7 @@ def test_span_timer_fixture_trips_host_rule():
     """The obs-layer positive control: a span timer that syncs the device
     inside the loop it times (reading the SANCTIONED obs clock, so only
     the sync is wrong) must trip the host-transfer rule."""
-    fs = analyze_entry(FIXTURES["fixture.span-timer"])
+    fs = analyze_entry(FIXTURES["fixture.span-timer"], device="cpu")
     assert rules(fs) == ["dataflow.host-transfer"], fs
     assert "3 _local_scalar_dense" in fs[0].message
 
@@ -81,13 +81,13 @@ def test_unregistered_overlap_entry_reports_control_failure():
     ep = dataclasses.replace(
         FIXTURES["fixture.f64-leak"],
         overlap=FIXTURES["fixture.serialized-psum"].overlap)
-    fs = analyze_entry(ep)
+    fs = analyze_entry(ep, device="cpu")
     assert "dataflow.control-failed" in rules(fs), fs
     assert any(f.key == "structures-not-found" for f in fs)
 
 
 def test_distributed_fixture_without_group_is_a_control_failure():
-    fs = analyze_entry(FIXTURES["fixture.serialized-psum"])
+    fs = analyze_entry(FIXTURES["fixture.serialized-psum"], device="cpu")
     assert [(f.rule, f.key) for f in fs] == [
         ("dataflow.control-failed", "no-group")]
 
@@ -99,7 +99,7 @@ def test_recorder_logs_ops_in_program_order():
         name="probe", build=lambda dev: (
             lambda a, b: (a + b) * a - (b - 1.0),
             (torch.ones(3), torch.ones(3, dtype=torch.float64))))
-    run = run_entry(ep)
+    run = run_entry(ep, device="cpu")
     ops = [e.name for e in run.recording.events if e.kind == "op"]
     assert ops == ["add", "mul", "sub", "sub"], ops
     assert not run.inputs_32
@@ -114,8 +114,9 @@ def test_single_device_entries_clean_within_sync_budget(name, syncs):
     load_entry_points()
     ep = registry.get(name)
     assert ep.max_host_syncs == syncs
-    assert analyze_entry(ep) == []
-    assert host_syncs(run_entry(ep)) == {"_local_scalar_dense": syncs}
+    assert analyze_entry(ep, device="cpu") == []
+    assert host_syncs(run_entry(ep, device="cpu")) == \
+        {"_local_scalar_dense": syncs}
 
 
 def test_registry_names_and_duplicate_rejection():
@@ -133,7 +134,7 @@ def test_registry_names_and_duplicate_rejection():
 
 
 def test_run_entry_exposes_recording():
-    run = run_entry(registry.get("pivoted_qr.blocked"))
+    run = run_entry(registry.get("pivoted_qr.blocked"), device="cpu")
     assert run.inputs_32 and run.name == "pivoted_qr.blocked"
     # the three panels of the blocked engine, each one panel_step
     assert sum(e.name == "topk" for e in run.recording.events) == 3
@@ -148,7 +149,7 @@ def test_kernel_packages_discovered():
 
 
 def test_all_kernel_contracts_pass():
-    findings, pkgs = check_all_kernels()
+    findings, pkgs = check_all_kernels(device="cpu")
     assert findings == [], [(f.rule, f.subject, f.key, f.message)
                             for f in findings]
     assert len(pkgs) == 8
@@ -170,9 +171,11 @@ def test_production_example_declares_fitting_launches(pkg):
 def test_flash_example_sits_close_under_the_budget():
     from repro_torch.kernels.flash.contract import CONTRACT
     (ln,) = CONTRACT.example().launches
-    assert ln.smem == 4 * (192 * 257 + 64 * 65) == 214016
-    assert ln.kernel == "flash_fwd_kernel<float32,float32,16>"
-    tight = dataclasses.replace(CONTRACT, smem_budget=214015)
+    # the q tile (64 rows of 66 chunks) and two stages of 32 k and v rows
+    # (66 and 65 chunks of 16 bytes) at hd 256 in f32
+    assert ln.smem == 16 * (64 * 66 + 2 * 32 * (66 + 65)) == 201728
+    assert ln.kernel == "flash_fwd_kernel<float32,float32,256>"
+    tight = dataclasses.replace(CONTRACT, smem_budget=201727)
     assert rules(_check_with("flash", tight)) == ["kernels.smem-overflow"]
 
 
@@ -199,13 +202,13 @@ def _check_with(pkg, contract, base="repro_torch.kernels"):
     saved = mod.CONTRACT
     mod.CONTRACT = contract
     try:
-        return check_package(pkg, base=base)
+        return check_package(pkg, base=base, device="cpu")
     finally:
         mod.CONTRACT = saved
 
 
 def test_badkernel_fixture_trips_smem_rule():
-    fs = check_package("badkernel", base=BADKERNEL_BASE)
+    fs = check_package("badkernel", base=BADKERNEL_BASE, device="cpu")
     # and ONLY the planted failure: the package is otherwise well-formed
     assert rules(fs) == ["kernels.smem-overflow"], fs
     assert "67108864 B" in fs[0].message and "232448" in fs[0].message
@@ -231,7 +234,7 @@ def test_threads_over_1024_trip_smem_rule():
 def test_constant_drift_detected(monkeypatch, attr, value):
     K = importlib.import_module("repro_torch.kernels.sketch_accum.kernel")
     monkeypatch.setattr(K, attr, value)
-    fs = check_package("sketch_accum")
+    fs = check_package("sketch_accum", device="cpu")
     assert {f.key for f in fs if f.rule == "kernels.constant-drift"} == \
         {"ACCUM_BLOCK", "ACCUM_BLOCK/kAccumBlock"}, fs
 
@@ -242,7 +245,7 @@ def test_max_panel_drift_against_the_header(monkeypatch):
     assert c_constant(CSRC / "panel_common.cuh", "kMaxPanel") == 64
     K = importlib.import_module("repro_torch.kernels.panel_step.kernel")
     monkeypatch.setattr(K, "MAX_PANEL", 32)
-    fs = check_package("panel_step")
+    fs = check_package("panel_step", device="cpu")
     assert [(f.rule, f.key) for f in fs] == [
         ("kernels.constant-drift", "MAX_PANEL/kMaxPanel")], fs
 
@@ -262,7 +265,7 @@ def test_missing_export_and_validation_regression_detected(monkeypatch):
         C.CONTRACT, ops=C.CONTRACT.ops + ("nonexistent",),
         bad_call=lambda: None)          # "validates" by not raising
     monkeypatch.setattr(C, "CONTRACT", broken)
-    fs = check_package("badkernel", base=BADKERNEL_BASE)
+    fs = check_package("badkernel", base=BADKERNEL_BASE, device="cpu")
     got = rules(fs)
     assert "kernels.missing-export" in got, fs
     assert "kernels.validation-missing" in got, fs
@@ -271,7 +274,7 @@ def test_missing_export_and_validation_regression_detected(monkeypatch):
 def test_removed_export_detected(monkeypatch):
     K = importlib.import_module("repro_torch.kernels.tsolve.kernel")
     monkeypatch.delattr(K, "tsolve_kernel")
-    fs = check_package("tsolve")
+    fs = check_package("tsolve", device="cpu")
     assert [(f.rule, f.key) for f in fs] == [
         ("kernels.missing-export", "kernel.tsolve_kernel")], fs
 
@@ -281,7 +284,7 @@ def test_ops_without_validation_detected(monkeypatch):
     checking it first trips the rule (the CPU lane, before dispatch)."""
     O = importlib.import_module("repro_torch.kernels.sketch_accum.ops")
     monkeypatch.setattr(O, "sketch_accum", lambda x, a, acc=None: None)
-    fs = check_package("sketch_accum")
+    fs = check_package("sketch_accum", device="cpu")
     assert [(f.rule, f.key) for f in fs] == [
         ("kernels.validation-missing", "bad-call")], fs
 
@@ -289,7 +292,7 @@ def test_ops_without_validation_detected(monkeypatch):
 def test_signature_mismatch_detected(monkeypatch):
     R = importlib.import_module(f"{BADKERNEL_BASE}.badkernel.ref")
     monkeypatch.setattr(R, "big_copy_ref", lambda y: y)
-    fs = check_package("badkernel", base=BADKERNEL_BASE)
+    fs = check_package("badkernel", base=BADKERNEL_BASE, device="cpu")
     assert any(f.rule == "kernels.signature-mismatch" for f in fs), fs
 
 
@@ -300,7 +303,7 @@ def test_bad_call_raising_wrong_type_detected(monkeypatch):
         raise TypeError("wrong exception class")
     monkeypatch.setattr(C, "CONTRACT",
                         dataclasses.replace(C.CONTRACT, bad_call=_boom))
-    fs = check_package("badkernel", base=BADKERNEL_BASE)
+    fs = check_package("badkernel", base=BADKERNEL_BASE, device="cpu")
     assert any(f.rule == "kernels.validation-missing" and
                "TypeError" in f.message for f in fs), fs
 
@@ -309,7 +312,7 @@ def test_blinded_smem_estimator_trips_control(monkeypatch):
     C = importlib.import_module(f"{BADKERNEL_BASE}.badkernel.contract")
     monkeypatch.setattr(C, "CONTRACT", dataclasses.replace(
         C.CONTRACT, smem_budget=1 << 40))
-    assert "controls.smem-rule-blind" in rules(run_controls())
+    assert "controls.smem-rule-blind" in rules(run_controls(device="cpu"))
 
 
 # ----------------------------------- parity with the reference (CPU)
@@ -339,7 +342,8 @@ def test_reference_and_port_flag_the_badkernel_example():
     from repro.analysis.kernels import check_package as jcheck_package
     assert rules(jcheck_package("badkernel", base=JBASE)) == \
         ["kernels.vmem-overflow"]
-    assert rules(check_package("badkernel", base=BADKERNEL_BASE)) == \
+    assert rules(check_package("badkernel", base=BADKERNEL_BASE,
+                               device="cpu")) == \
         ["kernels.smem-overflow"]
 
 
@@ -489,11 +493,13 @@ with tempfile.TemporaryDirectory() as td:
     out = {}
     for name in ("fixture.serialized-psum", "fixture.overlapped-psum",
                  "fixture.gather-blowup"):
-        out[name] = [(f.rule, f.key) for f in analyze_entry(FIXTURES[name])]
-    out["entries"] = {ep.name: [(f.rule, f.key) for f in analyze_entry(ep)]
+        out[name] = [(f.rule, f.key)
+                     for f in analyze_entry(FIXTURES[name], device="cpu")]
+    out["entries"] = {ep.name: [(f.rule, f.key)
+                                for f in analyze_entry(ep, device="cpu")]
                       for ep in registry.load_entry_points()}
-    out["controls"] = [f.rule for f in run_controls()]
-    rep = run_all()
+    out["controls"] = [f.rule for f in run_controls(device="cpu")]
+    rep = run_all(device="cpu")
     rep.write(sys.argv[3])
     out["passes"] = rep.passes_run
     out["errors"] = [(f.rule, f.subject) for f in rep.errors()]
@@ -548,3 +554,24 @@ def test_cli_passes_here_and_gates_on_new_findings(tmp_path):
     a = json.loads((tmp_path / "a.json").read_text())
     assert a["passes_run"] == ["dataflow", "kernels", "lint", "controls"]
     assert len(a["subjects"]["kernels"]) == 8
+
+
+def test_library_entry_points_default_to_the_card():
+    """``run_all``, ``run_controls``, ``check_all_kernels``,
+    ``check_package``, ``run_entry`` and ``analyze_entry`` run on the card
+    unless the caller names the CPU, as the CLI does; without a card the
+    default raises instead of falling back."""
+    import inspect
+
+    from repro_torch.analysis import runner
+    for fn in (runner.run_all, runner.run_controls, check_all_kernels,
+               check_package, run_entry, analyze_entry):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="is_available"):
+        check_all_kernels()
+    with pytest.raises(RuntimeError, match="is_available"):
+        analyze_entry(FIXTURES["fixture.span-timer"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        runner.run_controls()

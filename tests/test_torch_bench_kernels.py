@@ -271,7 +271,8 @@ def test_bench_cli_prints_and_records_rows(tmp_path, capsys):
 # ------------------------------------------------- the DMMA tile's bench
 
 @pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes"),
-                                   ("gram",)])
+                                   ("gram",), ("deflate",), ("split",),
+                                   ("flash",)])
 def test_bench_dmma_refuses_a_missing_card(parts):
     from repro_torch.benchmarks import bench_dmma
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -295,3 +296,74 @@ def test_bench_dmma_parity_holds_gram_rows_to_an_earlier_run():
     assert not parity([row], [dict(row, v_sha256="w")])[0]["bit_equal"]
     assert not parity([row], [dict(row, b=16)])[0]["bit_equal"]
     assert parity([other], [row]) == []
+
+
+def test_bench_dmma_parity_holds_sweep_rows_and_skips_deflate_rows():
+    """``sweep`` rows (panel_step, panel_coeff, panel_apply) are held to
+    the earlier run's digest list; ``deflate`` rows (a kernel this slice
+    redesigned) are not held at all."""
+    from repro_torch.benchmarks.bench_dmma import parity
+    sweep = {"what": "sweep", "kernel": "panel_coeff", "dtype": "complex64",
+             "l": 800, "b": 32, "n": 16384, "outputs_sha256": ["w", "r2"]}
+    deflate = {"what": "deflate", "kernel": "panel_deflate",
+               "dtype": "float64", "l": 800, "b": 32, "n": 16384,
+               "o_sha256": "o", "w_sha256": "w"}
+    assert [r["bit_equal"] for r in parity([sweep, deflate],
+                                           [sweep])] == [True]
+    other = dict(sweep, outputs_sha256=["w", "r3"])
+    assert not parity([sweep], [other])[0]["bit_equal"]
+    assert not parity([sweep], [dict(sweep, kernel="panel_step")])[0][
+        "bit_equal"]
+
+
+def test_bench_dmma_deflate_and_flash_work_counts():
+    """panel_deflate: 2 l b n multiply-adds (8 real flops each in complex),
+    Q_p and Z read and O and W written once; flash: 4 hd flops a live pair,
+    the live pairs those the causal mask and the window keep (counted here
+    against the dense mask), q, k, v read and o written once."""
+    from repro_torch.benchmarks.bench_dmma import (deflate_work, flash_work,
+                                                   live_pairs)
+    flops, nbytes = deflate_work(torch.float64, 800, 32, 2 ** 14)
+    assert flops == 4.0 * 800 * 32 * 2 ** 14 == 1677721600.0
+    assert nbytes == 8 * (800 * 32 + 2 * 800 * 2 ** 14 + 32 * 2 ** 14)
+    assert deflate_work(torch.complex64, 10, 3, 7) == (
+        8.0 * 2 * 10 * 3 * 7, 8 * (10 * 3 + 2 * 10 * 7 + 3 * 7))
+    for s, t, causal, window in ((50, 50, True, None), (40, 70, True, None),
+                                 (60, 60, True, 9), (30, 20, False, None),
+                                 (70, 40, True, 16)):
+        i, j = np.arange(s)[:, None], np.arange(t)[None, :]
+        ok = np.ones((s, t), bool)
+        if causal:
+            ok &= j <= i
+        if window:
+            ok &= j > i - window
+        assert live_pairs(s, t, causal, window) == int(ok.sum())
+    pairs, flops, nbytes = flash_work(32, 4000, 4000, 64, True, None,
+                                      torch.float32, torch.bfloat16)
+    assert pairs == 32 * 4000 * 4001 // 2 == 256064000
+    assert flops == 4.0 * 64 * pairs
+    assert nbytes == 32 * 64 * (2 * 4000 * 4 + 2 * 4000 * 2)
+
+
+def test_bench_dmma_device_summary_sums_a_trace_by_kernel():
+    """The split part's trace: rows of one kernel (its template arguments
+    kept, its argument list and namespace dropped) add up in ms and
+    launches; busy is the sum of the device rows, idle the rest of the
+    wall time; kernels come by device time."""
+    from repro_torch.benchmarks.bench_dmma import device_summary
+    rows = [("void (anonymous namespace)::panel_deflate_kernel<float, 32, "
+             "true, true>(float const*, float const*, float*, float*, long, "
+             "int, long)", 300.0, 4),
+            ("void panel_gram_kernel<float, true, 1>(float const*, long)",
+             500.0, 4),
+            ("void (anonymous namespace)::panel_deflate_kernel<float, 32, "
+             "true, true>(float const*, float const*, float*, float*, long, "
+             "int, long)", 250.0, 2)]
+    got = device_summary(rows, 0.002)
+    assert got["busy_ms"] == pytest.approx(1.05)
+    assert got["idle_share"] == pytest.approx(0.475)
+    assert got["kernels"] == [
+        {"name": "panel_deflate_kernel<float, 32, true, true>",
+         "ms": pytest.approx(0.55), "launches": 6},
+        {"name": "panel_gram_kernel<float, true, 1>", "ms": 0.5,
+         "launches": 4}]

@@ -188,6 +188,79 @@ def test_project_out_launches_skip_an_empty_product():
     assert project_out_launch(torch.float32, 0, 0, 5) == ()
 
 
+# Shapes for panel_deflate's geometry: Table 3's rows and the split
+# sweep's, the widest and the narrowest panels, ragged l and n, and l past
+# the resident slab.
+DEFLATE_SHAPES = [(800, 32, 2 ** 14), (800, 64, 2 ** 14), (256, 16, 4096),
+                  (256, 64, 4096), (77, 3, 301), (1, 1, 1), (800, 1, 130),
+                  (1600, 16, 1000), (4000, 32, 257), (10000, 64, 33)]
+
+
+def _deflate_expected(dtype, l, b, nc, resident):
+    """Shared bytes of csrc/panel_deflate.cu, written out: the slab (l
+    rounded up to 32 rows), W (b rounded up to 16 rows), the ring of
+    32-row stages of the panel (and of the slab when not resident): 2
+    stages beside W, or 3 with W in their place for f64."""
+    item = torch.empty((), dtype=dtype).element_size()
+    bp = (b + 15) // 16 * 16
+    slab = (l + 31) // 32 * 32 * nc if resident else 0
+    if dtype == torch.float64:
+        ring = 3 * 32 * (bp + (0 if resident else nc))
+        return item * (slab + max(ring, bp * nc))
+    ring = 2 * 32 * (bp + (0 if resident else nc))
+    return item * (slab + ring + bp * nc)
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("l,b,n", DEFLATE_SHAPES)
+def test_panel_deflate_launch_keeps_the_slab_resident_where_it_fits(
+        dtype, l, b, n):
+    """One CTA of 256 threads per column slab (32 columns, 16 for c128):
+    the slab resident in shared memory when it fits one block's 232448 B,
+    else 16 columns resident, else the re-reading geometry; every launch
+    within the budget; the 16-byte-copy flag from the rows' byte widths."""
+    from repro_torch.kernels.cgs.kernel import (DEFLATE_THREADS,
+                                                deflate_geometry,
+                                                panel_deflate_launch)
+    ln = panel_deflate_launch(dtype, l, b, n)
+    nc, resident = deflate_geometry(dtype, l, b)
+    pref = 16 if dtype == torch.complex128 else 32
+    fits = [c for c in (pref, 16)
+            if _deflate_expected(dtype, l, b, c, True) <= SMEM_BUDGET_BYTES]
+    assert (nc, resident) == ((fits[0], True) if fits else (pref, False))
+    assert ln.grid == (cdiv(n, nc), 1, 1)
+    assert ln.threads == (DEFLATE_THREADS, 1, 1)
+    assert ln.smem == _deflate_expected(dtype, l, b, nc, resident)
+    assert ln.smem <= SMEM_BUDGET_BYTES
+    item = torch.empty((), dtype=dtype).element_size()
+    vec = (b * item) % 16 == 0 and (n * item) % 16 == 0
+    assert ln.kernel == (f"panel_deflate_kernel<{type_name(dtype)},{nc},"
+                         f"{str(resident).lower()},{str(vec).lower()}>")
+    assert (ln.entry, ln.args) == ("repro_panel_deflate",
+                                   (dtype_code(dtype), None, None, None,
+                                    None, l, b, n, None))
+
+
+def test_panel_deflate_launch_at_the_main_row_and_past_the_slab():
+    """f64 at Table 3's row keeps a 32-column slab resident (204800 B of
+    slab, W in the ring's place: 229376 B); b = 64, or l = 1200, takes 16
+    columns resident; l = 4000 re-reads; c128 has 16 columns only, resident
+    at l = 256 and re-reading at 800."""
+    from repro_torch.kernels.cgs.kernel import (deflate_geometry,
+                                                panel_deflate_launch)
+    f64, c128 = torch.float64, torch.complex128
+    main = panel_deflate_launch(f64, 800, 32, 2 ** 14)
+    assert (main.kernel, main.grid, main.smem) == (
+        "panel_deflate_kernel<float64,32,true,true>", (512, 1, 1), 229376)
+    assert deflate_geometry(f64, 800, 64) == (16, True)
+    narrow = panel_deflate_launch(f64, 1200, 32, 2 ** 14)
+    assert (narrow.kernel, narrow.grid) == (
+        "panel_deflate_kernel<float64,16,true,true>", (1024, 1, 1))
+    assert deflate_geometry(f64, 4000, 32) == (32, False)
+    assert deflate_geometry(c128, 256, 32) == (16, True)
+    assert deflate_geometry(c128, 800, 32) == (16, False)
+
+
 # ------------------------------------------------------- split panel loop
 
 def _sketch_like(rng, l, n):

@@ -581,6 +581,109 @@ def test_cuda_panel_deflate_matches_plain(dtype, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l", [800, 256, 77])
+@pytest.mark.parametrize("b", [1, 3, 16, 32, 64])
+def test_cuda_panel_deflate_own_kernel_matches_plain_and_repeats(dtype, l, b):
+    """panel_deflate's own kernel (the slab resident where it fits) against
+    the plain version at a ragged n, both outputs; a repeated call gives
+    the same bits; the sweep of panel_step is not launched."""
+    from repro_torch.kernels.cgs.kernel import deflate_geometry
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(19 * l + b)
+    n = 301
+    q, z = _orthonormal(gen, l, b, dtype, dev), _randn(gen, (l, n), dtype, dev)
+    before = (DEFLATE_LAUNCHES.count, PANEL_LAUNCHES.count)
+    o, w = panel_deflate(q, z)
+    o2, w2 = panel_deflate(q, z)
+    assert (DEFLATE_LAUNCHES.count, PANEL_LAUNCHES.count) == \
+        (before[0] + 2, before[1])
+    want_o, want_w = panel_deflate_ref(q, z)
+    assert _rel(o, want_o) <= REL_TOL[dtype] and _rel(w, want_w) <= REL_TOL[dtype]
+    assert torch.equal(o, o2) and torch.equal(w, w2)
+    # c128 re-reads a 32-row-padded slab of 800 rows with W and its ring.
+    resident = deflate_geometry(dtype, l, b)[1]
+    assert resident or (dtype == torch.complex128 and l == 800)
+
+
+# (dtype, l, geometry the shape selects at b = 32): a 32-column slab
+# resident, a 16-column slab resident (32 would not fit), re-reading (no
+# slab fits); c128 has 16 columns only.
+DEFLATE_GEOMETRY_CASES = [
+    (torch.float32, 800, (32, True)), (torch.float32, 2400, (16, True)),
+    (torch.float32, 4000, (32, False)),
+    (torch.float64, 800, (32, True)), (torch.float64, 1200, (16, True)),
+    (torch.float64, 4000, (32, False)),
+    (torch.complex64, 800, (32, True)), (torch.complex64, 1200, (16, True)),
+    (torch.complex64, 4000, (32, False)),
+    (torch.complex128, 256, (16, True)), (torch.complex128, 4000, (16, False)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,geometry", DEFLATE_GEOMETRY_CASES)
+def test_cuda_panel_deflate_rereading_geometry_and_both_widths(dtype, l,
+                                                               geometry):
+    """Each geometry the shape selects (both slab widths resident, and the
+    re-reading one, where pass 2 reads Z again) gives results within
+    tolerance and the same bits when repeated."""
+    from repro_torch.kernels.cgs.kernel import (deflate_geometry,
+                                                panel_deflate_kernel)
+    dev = _device()
+    assert deflate_geometry(dtype, l, 32) == geometry
+    gen = torch.Generator(device=dev).manual_seed(1900 + l)
+    q = _orthonormal(gen, l, 32, dtype, dev)
+    z = _randn(gen, (l, 257), dtype, dev)
+    o, w = panel_deflate_kernel(q, z)
+    want_o, want_w = panel_deflate_ref(q, z)
+    assert _rel(o, want_o) <= REL_TOL[dtype]
+    assert _rel(w, want_w) <= REL_TOL[dtype]
+    o2, w2 = panel_deflate_kernel(q, z)
+    assert torch.equal(o, o2) and torch.equal(w, w2)
+
+
+@pytest.mark.cuda
+def test_cuda_panel_deflate_declared_launches_equal_the_c_side():
+    """panel_deflate_launch's grid, block and shared bytes, with the slab
+    resident at either width and re-reading, equal what the C side
+    launches."""
+    from repro_torch.analysis.kernels import hold_launch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cgs.kernel import panel_deflate_launch
+    from repro_torch.kernels.common import SMEM_BUDGET_BYTES
+    _device()
+    lib = _build.load_library()
+    for dtype in DTYPES:
+        for l, b, n in ((800, 32, 2 ** 14), (800, 64, 1000), (77, 3, 301),
+                        (1200, 32, 1037), (2400, 32, 1037), (4000, 32, 257)):
+            row = hold_launch(panel_deflate_launch(dtype, l, b, n), lib,
+                              SMEM_BUDGET_BYTES)
+            assert row["equal"] and row["status"] == 0, row
+
+
+@pytest.mark.cuda
+def test_cuda_panel_deflate_and_flash_instructions_without_spills():
+    """DMMA in every f64 panel_deflate kernel and no tensor-core instruction
+    in its other types' (f32 stays FFMA), the TF32 HMMA in every flash
+    kernel, no spills in any of them (cuobjdump -sass, ptxas -v)."""
+    from repro_torch.kernels import _build
+    _device()
+    _build.load_library()
+    ops = _build.tensor_core_ops(_build.build_info["path"])
+    ptxas = {r["kernel"]: r for r in _build.build_info["ptxas"]}
+    deflate = [k for k in ops if k.startswith("panel_deflate_kernel<")]
+    flash = [k for k in ops if k.startswith("flash_fwd_kernel<")]
+    # <T, width, resident, 16-byte copies>: widths 16 and 32, c128 16 only
+    assert len(deflate) == 4 * (3 * 2 + 1) and len(flash) == 4 * 3
+    for k in deflate:
+        assert ops[k] == (["DMMA"] if "float64" in k else []), (k, ops[k])
+    assert all(ops[k] == ["HMMA"] for k in flash), {k: ops[k] for k in flash}
+    for k in deflate + flash:
+        rec = ptxas[k]
+        assert not rec.get("spill_stores") and not rec.get("spill_loads"), rec
+
+
+@pytest.mark.cuda
 def test_cuda_cgs_kernels_refuse_other_dtypes_and_wide_panels():
     dev = _device()
     h = torch.ones(8, 2, dtype=torch.float16, device=dev)
@@ -775,9 +878,12 @@ FLASH_CASES = [  # (BH, S, T, hd, causal, window)
     (2, 130, 90, 128, False, None),       # non-causal, S != T
     (2, 200, 200, 128, True, 64),
     (2, 100, 100, 8, True, None),         # the reference test's smallest hd
+    (2, 300, 40, 64, True, None),         # T < 64: one ragged kv block
+    (2, 200, 200, 256, True, None),       # the widest head: 32-row kv blocks
+    (2, 150, 130, 256, False, 48),        # non-causal window, S != T
 ]
 FLASH_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-                (torch.bfloat16, torch.bfloat16)]
+                (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.cuda
