@@ -9,10 +9,10 @@ in order, printing one JSON line per phase:
   1. device   -- the card, its power limit, the build time and the
                  ``-Xptxas -v`` report of every kernel; the tensor-core
                  instructions of each (``cuobjdump -sass``): DMMA in the f64
-                 kernels of sketch_accum, sketch_matmul, project_out and
-                 panel_deflate, none in their f32 kernels nor in
-                 panel_gram's, the TF32 HMMA in every flash kernel, no
-                 spills in any;
+                 kernels of sketch_accum, sketch_matmul, project_out,
+                 panel_deflate and tsolve, none in their f32 kernels nor in
+                 panel_gram's and panel_apply's, the TF32 HMMA in every
+                 flash kernel, no spills in any;
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
@@ -20,7 +20,10 @@ in order, printing one JSON line per phase:
                  16-byte alignment (bit-equal to the aligned call);
                  duplicate-column panels; fwht bit-equal in
                  the real types; tsolve on a pivoted-QR R1 and, by its
-                 backward error, on the bench's ill-conditioned R1;
+                 backward error, on the bench's ill-conditioned R1, and at
+                 k=1000 (T re-read) with NaN below R1's diagonal;
+                 panel_apply at a 4-rank shard (n=4096) and a ragged
+                 shape, repeated bit for bit;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
                  n=2^14, both outputs of panel_deflate, and panel_deflate
                  at b = 1, 16, 32, 64, at a ragged l and n, in the
@@ -40,6 +43,8 @@ in order, printing one JSON line per phase:
                  qr_impl="panel_parallel")`` on a one-rank NCCL group at
                  the main path's matrix: launch counts, first and warm wall
                  time, peak memory, eq. (3), pivot overlap with ``rid``;
+                 the same call with stage B through panel_apply's plain
+                 version (the pivot set equal, P to rounding);
   6. gram     -- ``panel_parallel_pivoted_qr(Y, 400, group=g,
                  panel_impl="gram")`` on that sketch, against the fused
                  path, and its warm wall time;
@@ -76,8 +81,9 @@ in order, printing one JSON line per phase:
                  control present, big_copy launched on that path; every
                  production kernel's declared launch (grid, block, dynamic
                  shared bytes) equal to the C side's and within 232448 B
-                 (panel_deflate and flash also at the main path's shapes,
-                 in the re-reading geometry and at a named slab width),
+                 (panel_deflate, panel_apply, tsolve and flash also at the
+                 main path's shapes, panel_deflate and tsolve in their
+                 re-reading geometries, panel_apply at a 4-rank shard),
                  big_copy's 64 MiB example over it; then big_copy bit-equal
                  to big_copy_ref at fitting f32 and c128 shapes, its
                  example refused as a status, and sketch_accum right
@@ -109,6 +115,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
@@ -296,8 +303,13 @@ def main() -> int:
         from repro_torch.kernels.sketch_accum.kernel import (
             sketch_accum_launch)
         from repro_torch.kernels.common import SMEM_BUDGET_BYTES
-        from repro_torch.kernels.panel_step.kernel import (factor_launch,
+        from repro_torch.kernels.panel_step.kernel import (apply_geometry,
+                                                           apply_launch,
+                                                           factor_launch,
                                                            sweep_launch)
+        from repro_torch.kernels.tsolve.kernel import (tsolve_geometry,
+                                                       tsolve_launch)
+        from repro_torch.core import qr_dist
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -377,6 +389,17 @@ def main() -> int:
     dmma_kernels += deflate_kernels["float64"]
     fma_kernels += [k for t in ("float32", "complex64", "complex128")
                     for k in deflate_kernels[t]]
+    # tsolve<T, resident>: DMMA in f64's trailing update, FFMA in f32, the
+    # register tile in the complex types; panel_apply<T, slab columns,
+    # 16-byte copies>: the sweep's in-order DFMA / FFMA chains, never a
+    # tensor core (its bits are the parent's).
+    types = ("float32", "float64", "complex64", "complex128")
+    dmma_kernels += [f"tsolve_kernel<float64,{r}>" for r in ("true", "false")]
+    fma_kernels += [f"tsolve_kernel<{t},{r}>" for t in types if t != "float64"
+                    for r in ("true", "false")] + [
+        f"panel_apply_kernel<{t},{nc * 16 // size},{vec}>"
+        for t, size in zip(types, (4, 8, 8, 16)) for nc in (16, 32, 64)
+        for vec in ("true", "false")]
     flash_kernels = [f"flash_fwd_kernel<{q},{kv},{hd}>"
                      for q in ("float32", "bfloat16")
                      for kv in ("float32", "bfloat16") for hd in (64, 128, 256)]
@@ -648,6 +671,62 @@ def main() -> int:
         del Y, qr, got, want, B1, B2
         torch.cuda.empty_cache()
 
+    # panel_apply at the other slab widths the shapes select (the loop
+    # above ran the main shape: 64 vectors, 32 in f32): a 4-rank shard
+    # (n = 4096: 16 vectors), ragged l, n and b; each repeated for its bits.
+    # tsolve in the re-reading geometry (k = 1000: T's rows read back
+    # through the ring), with NaN below R1's diagonal, which it must not
+    # read.  The inputs come from a generator of their own, so that the
+    # later phases' draws do not depend on these checks.
+    own = torch.Generator(device=dev)
+    own.manual_seed(SEED + 20)
+
+    def randn_own(shape, dtype):
+        if dtype.is_complex:
+            rdt = dtype.to_real()
+            return torch.complex(
+                torch.randn(shape, generator=own, dtype=rdt, device=dev),
+                torch.randn(shape, generator=own, dtype=rdt, device=dev))
+        return torch.randn(shape, generator=own, dtype=dtype, device=dev)
+
+    for dtype in (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128):
+        name, tol = dname(dtype), REL_TOL[dname(dtype)]
+        for l, b, n in ((2 * MAIN_K, PANEL, 4096), (131, 17, 1037)):
+            qp = torch.linalg.qr(randn_own((l, b), dtype)).Q.contiguous()
+            w, z = randn_own((b, n), dtype), randn_own((l, n), dtype)
+            o, r2 = panel_apply(qp, w, z, emit_norms=True)
+            o2, r22 = panel_apply(qp, w, z, emit_norms=True)
+            want = panel_apply_norms_ref(qp, w, z)
+            errs = [rel_err(u, v) for u, v in zip((o, r2), want)]
+            torch.cuda.synchronize()
+            same = bool(torch.equal(o, o2) and torch.equal(r2, r22))
+            emit({"phase": "kernels", "kernel": "panel_apply(emit_norms)",
+                  "dtype": name, "l": l, "b": b, "n": n,
+                  "slab_columns": apply_geometry(dtype, b, n),
+                  "rel_err": max(errs), "rel_tol": tol,
+                  "repeat_same_bits": same})
+            check(max(errs) <= tol and same,
+                  f"panel_apply {name} (l, b, n)={(l, b, n)}: rel errs "
+                  f"{errs}, repeat bits {same}")
+            del qp, w, z, o, r2, o2, r22, want
+        k, n = 1000, 1037
+        R1 = torch.linalg.qr(randn_own((k + 20, k), dtype)).R
+        R2 = randn_own((k, n), dtype)
+        junk = torch.full((k, k), float("nan"), dtype=dtype, device=dev)
+        got = tsolve(R1 + torch.tril(junk, -1), R2)
+        err = rel_err(got, tsolve_ref(R1, R2))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, tsolve(R1, R2)))
+        emit({"phase": "kernels", "kernel": "tsolve", "dtype": name, "k": k,
+              "n": n, "resident": tsolve_geometry(dtype, k)[1],
+              "nan_below_diagonal": True, "rel_err": err, "rel_tol": tol,
+              "same_bits_as_zeros_below": same})
+        check(err <= tol and same,
+              f"tsolve {name} k={k}: rel err {err}, junk read {not same}")
+        del R1, R2, junk, got
+        torch.cuda.empty_cache()
+
     # The CGS kernels of paper Table 3 at its main row: project_out against
     # an orthonormal l x k basis, panel_deflate against its first 32
     # columns; both outputs of panel_deflate are checked.
@@ -866,6 +945,25 @@ def main() -> int:
         warm = time.perf_counter() - t0
         same = bool(torch.equal(dec.J, dec2.J) and torch.equal(dec.P, dec2.P))
         overlap = len(set(dec.J.tolist()) & set(J_single.tolist())) / k
+        # The same run with stage B through its plain version on the card
+        # (Z - Q_p W and its norms by the library's GEMM): the pivots as a
+        # set, and P to rounding.
+
+        def plain_apply(qp, w, z, *, emit_norms=False):
+            return (panel_apply_norms_ref(qp, w, z) if emit_norms
+                    else panel_apply_ref(qp, w, z))
+        before = APPLY_LAUNCHES.count
+        with mock.patch.object(qr_dist, "panel_apply", plain_apply):
+            dec_plain = rid_distributed(SEED, A, k, group=g,
+                                        sketch_kind="gaussian",
+                                        qr_impl="panel_parallel")
+        torch.cuda.synchronize()
+        plain_stage_b = {
+            "apply_launches": APPLY_LAUNCHES.count - before,
+            "pivot_sets_equal": set(dec.J.tolist()) == set(
+                dec_plain.J.tolist()),
+            "P_max_abs_diff_rel": rel_err(dec.P, dec_plain.P)}
+        del dec_plain
         res = eq3_report(A, dec, k)
         trace = profiled(lambda: rid_distributed(
             SEED, A, k, group=g, sketch_kind="gaussian",
@@ -877,7 +975,12 @@ def main() -> int:
               "m": m, "n": n, "k": k, "l": l, "dtype": "float64",
               "launches": counts, "wall_first_s": first, "wall_warm_s": warm,
               "max_memory_allocated": peak, "repeat_same_bits": same,
-              "pivot_overlap_with_rid": overlap, **res, "trace": trace})
+              "pivot_overlap_with_rid": overlap,
+              "against_plain_stage_b": plain_stage_b, **res, "trace": trace})
+        check(plain_stage_b["apply_launches"] == 0
+              and plain_stage_b["pivot_sets_equal"]
+              and plain_stage_b["P_max_abs_diff_rel"] <= 1e-8,
+              f"distributed: against the plain stage B {plain_stage_b}")
         check(counts["panel_coeff"] == n_panels
               and counts["panel_apply"] == n_panels,
               f"distributed: panel_coeff/panel_apply launched "
@@ -1360,7 +1463,15 @@ def main() -> int:
     for name, launches in (
             ("panel_coeff", (factor_launch(f32, 256, 32),
                              sweep_launch("coeff", f32, 256, 32, 4096))),
-            ("panel_apply", (sweep_launch("apply", f32, 256, 32, 4096),)),
+            ("panel_apply", (apply_launch(f32, 256, 32, 4096),)),
+            ("panel_apply(f64, main)", (apply_launch(
+                torch.float64, 2 * MAIN_K, PANEL, MAIN_N),)),
+            ("panel_apply(f64, 4-rank shard)", (apply_launch(
+                torch.float64, 2 * MAIN_K, PANEL, MAIN_N // 4),)),
+            ("tsolve(f64, main)", (tsolve_launch(
+                torch.float64, MAIN_K, MAIN_N),)),
+            ("tsolve(f64, re-reading)", (tsolve_launch(
+                torch.float64, 1000, MAIN_N),)),
             ("sketch_accum(f32)", (sketch_accum_launch(f32, 96, 1024, 512),)),
             ("project_out(f32)", project_out_launch(f32, 256, 400, 4096)),
             ("sketch_matmul(f32)", (sketch_matmul_launch(f32, 128, 1024,
@@ -1397,7 +1508,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 19 and all(
+    check(len(geometry) == 23 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1513,7 +1624,7 @@ def main() -> int:
     apply_flops, apply_bytes = 2.0 * l * b * n, esize * (l * b + b * n + 2 * l * n)
     apply_norms_ms = cuda_ms(lambda: panel_apply(qp, w, z, emit_norms=True), 20)
     apply = timed(
-        "panel_apply", "src/repro_torch/csrc/panel_step.cu",
+        "panel_apply", "src/repro_torch/csrc/panel_apply.cu",
         "src/repro/kernels/panel_step/kernel.py:257",
         dist_launches["panel_apply"], split_err_f64["panel_apply"],
         lambda: panel_apply(qp, w, z), lambda: panel_apply_ref(qp, w, z),

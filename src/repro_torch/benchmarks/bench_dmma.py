@@ -1,9 +1,10 @@
 """The FP64 tensor-core tile of ``csrc/dmma_tile.cuh``, the kernels on it,
-the panel Gram, the panel deflation and flash attention, on the card.
+the panel Gram, the panel deflation and application, the triangular solve
+and flash attention, on the card.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_dmma \
-        [--parts probe kernels shapes gram deflate flash] [--json PATH] \
-        [--against PATH]
+        [--parts probe kernels shapes gram deflate split apply tsolve flash] \
+        [--json PATH] [--against PATH]
 
 Prints one JSON line per measurement (and appends them to ``--json``):
 
@@ -36,15 +37,25 @@ Prints one JSON line per measurement (and appends them to ``--json``):
               (``time_fn``, ``SPLIT_ROUNDS`` rounds, the paths alternating)
               and one traced call of each (``torch.profiler``): device busy
               ms, idle share, the kernels by device time;
+  apply    -- ``panel_apply`` with ``emit_norms`` (and without: ``ms``) at
+              the distributed main shape (l=800, b=32, n=2^14), a 4-rank
+              shard (n=4096) and the split sweep's shapes (l=256, b=16 /
+              32 / 64, n=4096) in the four dtypes, beside
+              ``torch.addmm(z, qp, w, alpha=-1)``, with GB/s, the byte
+              bound and digests of O and colnorms^2(O);
+  tsolve   -- ``tsolve`` (n=2^14, k=100 / 400 / 1000) in the four dtypes
+              on the R of a QR, beside ``torch.linalg.solve_triangular``:
+              TFLOP/s, the bound and the error against ``tsolve_ref``;
   flash    -- ``flash_attention_kernel`` at granite-3-2b's prefill (32
               heads, hd 64, S=T=4000, causal) and h2o-danube-1.8b's (32
               heads, hd 80, S=T=6144, window 4096), f32 q and bf16 k/v as
               the model passes them, beside
               ``F.scaled_dot_product_attention`` in f32 on the same inputs.
 
-``--against PATH`` compares the ``gram`` and ``sweep`` rows' digests with
-those of an earlier run's ``--json`` file (same inputs: each dtype draws
-from its own seed) and exits 1 unless every such row is bit-equal.
+``--against PATH`` compares the ``gram``, ``sweep`` and ``apply`` rows'
+digests with those of an earlier run's ``--json`` file (same inputs: each
+dtype draws from its own seed) and exits 1 unless every such row is
+bit-equal.
 
 Needs a card (and nvcc).  All parts but ``probe`` use only the wrappers'
 public signatures, so the same file times an older checkout's kernels
@@ -64,10 +75,11 @@ import torch
 
 from .common import append_json_rows, randn, time_fn
 
-__all__ = ["PARTS", "run", "parity", "deflate_work", "flash_work",
-           "live_pairs", "device_summary"]
+__all__ = ["PARTS", "run", "parity", "deflate_work", "apply_work",
+           "tsolve_work", "flash_work", "live_pairs", "device_summary"]
 
-PARTS = ("probe", "kernels", "shapes", "gram", "deflate", "split", "flash")
+PARTS = ("probe", "kernels", "shapes", "gram", "deflate", "split", "apply",
+         "tsolve", "flash")
 DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 L, M, N, K = 800, 2 ** 16, 2 ** 14, 400
 GRAM_BS = (16, 32, 64)
@@ -75,12 +87,17 @@ GRAM_BS = (16, 32, 64)
 DEFLATE_SHAPES = ((L, 32, N), (256, 16, 4096), (256, 32, 4096),
                   (256, 64, 4096))
 SPLIT_ROUNDS = 5
+# panel_apply: (l, b, n) of the distributed main row, a 4-rank shard of it
+# and the split sweep's.
+APPLY_SHAPES = ((L, 32, N), (L, 32, 4096), (256, 16, 4096), (256, 32, 4096),
+                (256, 64, 4096))
+TSOLVE_KS = (100, K, 1000)
 # flash: (case, B*H, S=T, hd, window) of the two models' long prefills.
 FLASH_SHAPES = (("granite-3-2b prefill", 32, 4000, 64, None),
                 ("h2o-danube-1.8b prefill", 32, 6144, 80, 4096))
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FFMA and
-# TF32 tensor-core FLOP/s.
-HBM_BYTES_PER_S, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FFMA, TF32
+# tensor-core and FP64 tensor-core FLOP/s.
+HBM_BYTES_PER_S, PEAK_F32, PEAK_TF32, PEAK_F64 = 3.35e12, 67e12, 495e12, 67e12
 
 _PROBE = Path(__file__).resolve().with_name("dmma_probe.cu")
 
@@ -276,6 +293,23 @@ def deflate_work(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:
             item * (l * b + 2 * l * n + b * n))
 
 
+def apply_work(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:
+    """(real flops, bytes) of one ``panel_apply``: ``O = Z - Q_p W`` (l b n
+    multiply-adds); ``Q_p``, ``W`` and ``Z`` read once, ``O`` written once
+    (the norms' n reals not counted)."""
+    item = torch.empty((), dtype=dtype, device="meta").element_size()
+    return (_real_flops(dtype, 1.0 * l * b * n),
+            item * (l * b + b * n + 2 * l * n))
+
+
+def tsolve_work(dtype: torch.dtype, k: int, n: int) -> tuple:
+    """(real flops, bytes) of one ``tsolve``: k (k + 1) / 2 n multiply-adds;
+    ``R1``'s upper triangle and ``R2`` read once, ``T`` written once."""
+    item = torch.empty((), dtype=dtype, device="meta").element_size()
+    return (_real_flops(dtype, k * (k + 1) / 2 * n),
+            item * (k * (k + 1) // 2 + 2 * k * n))
+
+
 def live_pairs(s: int, t: int, causal: bool, window) -> int:
     """(q, k) pairs of one head that the mask keeps."""
     total = 0
@@ -346,6 +380,72 @@ def _deflate_rows(dev, out: list) -> None:
                         "b": b, "n": N, "ms": _cuda_ms(call, 20),
                         "outputs_sha256": [_digest(t) for t in outs]})
         del c, z, qp, o, w, r2, r2in, cw, cr2, ao, ar2
+        torch.cuda.empty_cache()
+
+
+def _apply_rows(dev, out: list) -> None:
+    """``panel_apply`` at ``APPLY_SHAPES`` in the four dtypes beside the
+    library call; each dtype draws from its own seed."""
+    from ..kernels.panel_step import panel_apply
+    for i, dtype in enumerate(DTYPES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(600 + i)
+        for l, b, n in APPLY_SHAPES:
+            qp = torch.linalg.qr(randn(gen, (l, b), dtype, dev)).Q.contiguous()
+            w = randn(gen, (b, n), dtype, dev)
+            z = randn(gen, (l, n), dtype, dev)
+
+            def library():
+                return torch.addmm(z, qp, w, alpha=-1)
+
+            flops, nbytes = apply_work(dtype, l, b, n)
+            o, r2 = panel_apply(qp, w, z, emit_norms=True)
+            ms = _cuda_ms(lambda: panel_apply(qp, w, z), 20)
+            out.append({
+                "what": "apply", "kernel": "panel_apply",
+                "dtype": str(dtype).removeprefix("torch."), "l": l, "b": b,
+                "n": n, "ms": ms,
+                "norms_ms": _cuda_ms(lambda: panel_apply(qp, w, z,
+                                                         emit_norms=True), 20),
+                "library_ms": _cuda_ms(library, 20), "gbs": nbytes / ms / 1e6,
+                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                      flops / PEAK_F64),
+                "rel_err_vs_library": _rel_err(o, library()),
+                "o_sha256": _digest(o), "r2_sha256": _digest(r2)})
+            del qp, w, z, o, r2
+        torch.cuda.empty_cache()
+
+
+def _tsolve_rows(dev, out: list) -> None:
+    """``tsolve`` at n = ``N`` and k in ``TSOLVE_KS`` in the four dtypes, on
+    the R of a QR, beside ``torch.linalg.solve_triangular``."""
+    from ..kernels.tsolve import tsolve
+    from ..kernels.tsolve.ref import tsolve_ref
+    for i, dtype in enumerate(DTYPES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(700 + i)
+        for k in TSOLVE_KS:
+            r1 = torch.linalg.qr(randn(gen, (k + 20, k), dtype, dev)).R
+            r2 = randn(gen, (k, N), dtype, dev)
+
+            def library():
+                return torch.linalg.solve_triangular(r1, r2, upper=True)
+
+            flops, nbytes = tsolve_work(dtype, k, N)
+            ms = _cuda_ms(lambda: tsolve(r1, r2), 10)
+            got = tsolve(r1, r2)
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        flops / (PEAK_F64 if dtype in (torch.float64,
+                                                       torch.complex128)
+                                 else PEAK_F32))
+            out.append({
+                "what": "tsolve", "kernel": "tsolve",
+                "dtype": str(dtype).removeprefix("torch."), "k": k, "n": N,
+                "ms": ms, "library_ms": _cuda_ms(library, 10),
+                "tflops": flops / ms / 1e9, "bound_ms": 1e3 * bound,
+                "rel_err_vs_plain": _rel_err(got, tsolve_ref(r1, r2)),
+                "rel_err_vs_library": _rel_err(got, library())})
+            del r1, r2, got
         torch.cuda.empty_cache()
 
 
@@ -453,11 +553,11 @@ def _flash_rows(dev, out: list) -> None:
 
 
 # Row kinds whose digests --against holds to an earlier run's.
-PARITY_KINDS = ("gram", "sweep")
+PARITY_KINDS = ("gram", "sweep", "apply")
 
 
 def parity(rows: list, earlier: list) -> list[dict]:
-    """One ``parity`` row per ``gram`` or ``sweep`` row of ``rows``:
+    """One ``parity`` row per ``gram``, ``sweep`` or ``apply`` row of ``rows``:
     whether the row of ``earlier`` with the same (kind, kernel, dtype, l,
     b, n) has the same digests (every ``*sha256`` field)."""
     def key(r):
@@ -511,6 +611,10 @@ def run(device="cuda", parts=PARTS, emit=None) -> list[dict]:
         _deflate_rows(dev, out)
     if "split" in parts:
         _split_rows(dev, out)
+    if "apply" in parts:
+        _apply_rows(dev, out)
+    if "tsolve" in parts:
+        _tsolve_rows(dev, out)
     if "flash" in parts:
         _flash_rows(dev, out)
     out.append({"what": "device", "name": torch.cuda.get_device_name(dev)})
@@ -537,7 +641,7 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", nargs="*", default=list(PARTS), choices=PARTS)
     ap.add_argument("--against", default=None,
                     help="an earlier run's --json file: exit 1 unless every "
-                         "gram and sweep row has its digests")
+                         "gram, sweep and apply row has its digests")
     args = ap.parse_args(argv)
     rows = run("cuda", tuple(args.parts),
                emit=lambda row: print(json.dumps(row), flush=True))

@@ -192,7 +192,8 @@ def main(argv=None) -> None:
     finish(acceptance(panels, device=args.device),
            f"Acceptance: blocked vs cgs2, l={ACCEPT_L} n={ACCEPT_N} "
            f"k={ACCEPT_K} f32 ({args.device})", args.json)
-    fused_vs_split_sweep(panels, device=args.device, json_path=args.json)
+    fused_vs_split_sweep(panels, l=ACCEPT_L, n=ACCEPT_N, k=ACCEPT_K,
+                         device=args.device, json_path=args.json)
 
 
 if __name__ == "__main__":

@@ -64,6 +64,7 @@
 
 #include "dmma_tile.cuh"
 #include "panel_common.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -99,25 +100,6 @@ template <class T> struct DeflateTile { static constexpr int TM = 4, TN = 4; };
 template <> struct DeflateTile<cplx<float>> { static constexpr int TM = 2, TN = 4; };
 template <> struct DeflateTile<cplx<double>> { static constexpr int TM = 2, TN = 2; };
 constexpr int kPass2Rows = 2;
-
-__device__ __forceinline__ int swz(int r, int c, int pitch) {
-  return r * pitch + (c ^ ((r & 3) << 2));
-}
-
-// Copy kBytes (4, 8 or 16) of src to shared dst, of which the first
-// `bytes` are read and the rest zero-filled.
-template <int kBytes>
-__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, int bytes) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     dmma::smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     dmma::smem_addr(dst)),
-                 "l"(src), "n"(kBytes), "r"(bytes));
-  }
-}
 
 // N consecutive elements of shared memory (16-byte aligned for f32 when
 // N % 4 == 0: four floats a load).

@@ -1,14 +1,14 @@
 // Panel kernels of the pivoted QR engines, for Hopper.
 //
-// Replaces three TPU kernels of repro/kernels/panel_step/kernel.py:
+// Replaces two TPU kernels of repro/kernels/panel_step/kernel.py:
 //   panel_step_kernel   -- factor the candidate panel C (l x b) with
 //                          CholeskyQR2 and sweep the residual Z (l x n):
 //                          W = Q_p^H Z, O = Z - Q_p W, colnorms^2(O);
 //   panel_coeff_kernel  -- the factor, W and the downdated norms
 //                          max(r2 - colnorms^2(W), 0), no O (stage A of the
-//                          distributed panel);
-//   panel_apply_kernel  -- O = Z - Q_p W with W given, and colnorms^2(O)
-//                          when asked (stage B, and the norm-recompute panel).
+//                          distributed panel).
+// The third, panel_apply_kernel (stage B), has a kernel of its own in
+// panel_apply.cu.
 // On the TPU, grid step 0 factors the panel and keeps Q_p in VMEM through a
 // constant index map for every later slab.
 //
@@ -18,15 +18,13 @@
 //   (a) panel_factor_kernel, one CTA: G = C^H C, the clamped Cholesky,
 //       X = C L^{-H} by forward substitution over columns; twice (round 2
 //       factors the computed Q1, Yamamoto's correction).
-//   (b) panel_sweep_kernel<T, kComputeW, kEmitO>, one CTA per 32-column
-//       slab of Z.  Pass 1 walks l in 32-row chunks to form W in registers
-//       (kComputeW), or W is read from global memory (panel_apply).  Pass 2
+//   (b) panel_sweep_kernel<T, kEmitO>, one CTA per 32-column slab of Z.
+//       Pass 1 walks l in 32-row chunks to form W in registers.  Pass 2
 //       (kEmitO) walks l again (Z re-read, from L2 where it still holds) for
 //       O = Z - Q_p W and the column norms, taken from the unrounded O
 //       before the store.  Without pass 2 (panel_coeff) the norms are the
 //       downdate max(r2 - colnorms^2(W), 0) from the unrounded W.
-//   panel_step = (a) + (b)<T, true, true>; panel_coeff = (a) +
-//   (b)<T, true, false>; panel_apply = (b)<T, false, true>.
+//   panel_step = (a) + (b)<T, true>; panel_coeff = (a) + (b)<T, false>.
 // Every sum runs in a fixed order (no atomics, no split reductions), so the
 // same inputs give the same bits, on every rank of a distributed run.
 //
@@ -40,8 +38,7 @@
 //
 // Bounds at the main path (f64, l=800, b=32, n=2^14), all by bytes:
 // panel_step moves about 210 MB (Z in, O out) for 1.7 GFLOP; panel_coeff
-// 110 MB (Z in, W out) for 0.85 GFLOP; panel_apply 214 MB (Z and W in, O
-// out) for 0.84 GFLOP.
+// 110 MB (Z in, W out) for 0.85 GFLOP.
 #include "panel_common.cuh"
 
 namespace {
@@ -125,17 +122,15 @@ panel_factor_kernel(const T* __restrict__ c, T* qp, int64_t l, int b) {
   }
 }
 
-// One CTA per kSweepCols columns of Z (see the file comment for the flags).
-// w_out (nullable) receives W when kComputeW; w_in is read when not.
-// r2 (nullable when kEmitO) receives colnorms^2(O) when kEmitO, else the
-// downdate max(r2_in - colnorms^2(W), 0).
-template <class T, bool kComputeW, bool kEmitO>
+// One CTA per kSweepCols columns of Z (see the file comment for the flag).
+// w_out (nullable) receives W.  r2 (nullable when kEmitO) receives
+// colnorms^2(O) when kEmitO, else the downdate max(r2_in - colnorms^2(W), 0).
+template <class T, bool kEmitO>
 __global__ void __launch_bounds__(kSweepThreads)
 panel_sweep_kernel(const T* __restrict__ qp, const T* __restrict__ z,
-                   const T* __restrict__ w_in, const real_t<T>* __restrict__ r2_in,
-                   T* __restrict__ o, T* __restrict__ w_out,
-                   real_t<T>* __restrict__ r2, int64_t l, int b, int64_t n) {
-  static_assert(kComputeW || kEmitO, "a sweep emits W or O");
+                   const real_t<T>* __restrict__ r2_in, T* __restrict__ o,
+                   T* __restrict__ w_out, real_t<T>* __restrict__ r2, int64_t l, int b,
+                   int64_t n) {
   using R = real_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // kSweepRows x b
@@ -149,22 +144,15 @@ panel_sweep_kernel(const T* __restrict__ qp, const T* __restrict__ z,
   const bool live = col < n;
 
   R racc = R(0);
-  if constexpr (kComputeW) {
-    T wacc[kPerWarp];
-    coeff_pass(qp, z, l, b, n, c0, qs, zs, wacc);
+  T wacc[kPerWarp];
+  coeff_pass(qp, z, l, b, n, c0, qs, zs, wacc);
 #pragma unroll
-    for (int q = 0; q < kPerWarp; ++q) {
-      const int p = warp + kSweepWarps * q;
-      if (p < b) {
-        ws[p * kSweepCols + lane] = wacc[q];
-        if (w_out != nullptr && live) w_out[p * n + col] = wacc[q];
-        if constexpr (!kEmitO) racc = abs2_add(wacc[q], racc);
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < b * kSweepCols; e += blockDim.x) {
-      const int p = e / kSweepCols, cc = e % kSweepCols;
-      ws[e] = (c0 + cc < n) ? w_in[p * n + c0 + cc] : T{};
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int p = warp + kSweepWarps * q;
+    if (p < b) {
+      ws[p * kSweepCols + lane] = wacc[q];
+      if (w_out != nullptr && live) w_out[p * n + col] = wacc[q];
+      if constexpr (!kEmitO) racc = abs2_add(wacc[q], racc);
     }
   }
   __syncthreads();
@@ -223,36 +211,29 @@ cudaError_t launch_factor(const void* c, void* qp, int64_t l, int b, cudaStream_
                 stream, static_cast<const T*>(c), static_cast<T*>(qp), l, b);
 }
 
-template <class T, bool kComputeW, bool kEmitO>
-cudaError_t launch_sweep(const void* qp, const void* z, const void* w_in,
-                         const void* r2_in, void* o, void* w_out, void* r2, int64_t l,
-                         int b, int64_t n, cudaStream_t stream) {
+template <class T, bool kEmitO>
+cudaError_t launch_sweep(const void* qp, const void* z, const void* r2_in, void* o,
+                         void* w_out, void* r2, int64_t l, int b, int64_t n,
+                         cudaStream_t stream) {
   using R = real_t<T>;
   const unsigned grid = static_cast<unsigned>((n + kSweepCols - 1) / kSweepCols);
-  return launch(panel_sweep_kernel<T, kComputeW, kEmitO>, dim3(grid), dim3(kSweepThreads),
+  return launch(panel_sweep_kernel<T, kEmitO>, dim3(grid), dim3(kSweepThreads),
                 sweep_smem<T>(b), stream, static_cast<const T*>(qp),
-                static_cast<const T*>(z), static_cast<const T*>(w_in),
-                static_cast<const R*>(r2_in), static_cast<T*>(o), static_cast<T*>(w_out),
-                static_cast<R*>(r2), l, b, n);
+                static_cast<const T*>(z), static_cast<const R*>(r2_in), static_cast<T*>(o),
+                static_cast<T*>(w_out), static_cast<R*>(r2), l, b, n);
 }
 
-// The three sweeps behind the C entry points.
+// The two sweeps behind the C entry points.
 template <class T>
 cudaError_t launch_step_sweep(const void* qp, const void* z, void* o, void* w, void* r2,
                               int64_t l, int b, int64_t n, cudaStream_t s) {
-  return launch_sweep<T, true, true>(qp, z, nullptr, nullptr, o, w, r2, l, b, n, s);
+  return launch_sweep<T, true>(qp, z, nullptr, o, w, r2, l, b, n, s);
 }
 
 template <class T>
 cudaError_t launch_coeff_sweep(const void* qp, const void* z, const void* r2_in, void* w,
                                void* r2, int64_t l, int b, int64_t n, cudaStream_t s) {
-  return launch_sweep<T, true, false>(qp, z, nullptr, r2_in, nullptr, w, r2, l, b, n, s);
-}
-
-template <class T>
-cudaError_t launch_apply(const void* qp, const void* w, const void* z, void* o, void* r2,
-                         int64_t l, int b, int64_t n, cudaStream_t s) {
-  return launch_sweep<T, false, true>(qp, z, w, nullptr, o, nullptr, r2, l, b, n, s);
+  return launch_sweep<T, false>(qp, z, r2_in, nullptr, w, r2, l, b, n, s);
 }
 
 bool bad_sizes(int64_t l, int64_t b, int64_t n) {
@@ -284,12 +265,4 @@ extern "C" int repro_panel_coeff_sweep(int dtype, const void* qp, const void* z,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH(dtype, launch_coeff_sweep, qp, z, r2_in, w, r2, l, static_cast<int>(b),
                  n, s);
-}
-
-extern "C" int repro_panel_apply(int dtype, const void* qp, const void* w,
-                                 const void* z, void* o, void* r2, int64_t l,
-                                 int64_t b, int64_t n, void* stream) {
-  if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH(dtype, launch_apply, qp, w, z, o, r2, l, static_cast<int>(b), n, s);
 }

@@ -40,6 +40,10 @@ CONTRACT = KernelContract(
                  "SWEEP_COLS": ("panel_common.cuh", "kSweepCols"),
                  "SWEEP_ROWS": ("panel_common.cuh", "kSweepRows"),
                  "SWEEP_WARPS": ("panel_common.cuh", "kSweepWarps"),
-                 "FACTOR_THREADS": ("panel_step.cu", "kFactorThreads")},
+                 "FACTOR_THREADS": ("panel_step.cu", "kFactorThreads"),
+                 "APPLY_NORM_GROUPS": ("panel_apply.cu", "kApplyNormGroups"),
+                 "APPLY_ROWS": ("panel_apply.cu", "kApplyRows"),
+                 "APPLY_STAGES": ("panel_apply.cu", "kApplyStages"),
+                 "APPLY_MIN_CTAS": ("panel_apply.cu", "kApplyMinCtas")},
     bad_call=_bad_call,
 )

@@ -1,6 +1,7 @@
-"""Wrappers of the Hopper panel kernels (``csrc/panel_step.cu``), which
-replace three TPU kernels of ``repro/kernels/panel_step/kernel.py``:
-``panel_step_kernel``, ``panel_coeff_kernel`` and ``panel_apply_kernel``.
+"""Wrappers of the Hopper panel kernels (``csrc/panel_step.cu``,
+``csrc/panel_apply.cu``), which replace three TPU kernels of
+``repro/kernels/panel_step/kernel.py``: ``panel_step_kernel``,
+``panel_coeff_kernel`` and ``panel_apply_kernel``.
 
 The TPU kernels factor the panel on grid step 0 and keep ``Q_p`` in VMEM
 for every later slab.  Hopper blocks share nothing, so the factor is a
@@ -8,30 +9,33 @@ launch of its own:
 
   (a) ``panel_factor`` -- one CTA: CholeskyQR2 of ``C`` with the clamped
       Cholesky of ``ref.chol_clamped``, ``Q_p`` to global memory;
-  (b) ``panel_sweep``  -- one CTA per 32-column slab of ``Z``, in three
+  (b) ``panel_sweep``  -- one CTA per 32-column slab of ``Z``, in two
       instantiations:
         panel_step:  ``W = Q_p^H Z``, ``O = Z - Q_p W``, ``colnorms^2(O)``
                      from the unrounded ``O``; ``W`` stored only when
                      ``emit_w``;
         panel_coeff: ``W`` and the downdate ``max(r2 - colnorms^2(W), 0)``,
-                     no ``O`` (stage A of the distributed panel);
-        panel_apply: ``O = Z - Q_p W`` with ``W`` read, and
-                     ``colnorms^2(O)`` with ``emit_norms`` (stage B).
+                     no ``O`` (stage A of the distributed panel).
 
-``panel_step`` and ``panel_coeff`` are (a) then (b); ``panel_apply`` is (b)
-alone.  One call is one launch of the ported kernel in its launch count
-(a factor + sweep pair is counted once).
+``panel_step`` and ``panel_coeff`` are (a) then (b).  ``panel_apply``
+(stage B: ``O = Z - Q_p W`` with ``W`` given, and ``colnorms^2(O)`` with
+``emit_norms``) is one launch of a kernel of its own (``apply_launch``):
+slabs of 16, 32 or 64 16-byte vectors a row, chunks of ``Q_p`` and ``Z``
+through a ring of cp.async stages, the sweep's arithmetic and sum order,
+so its bits.  One call is one launch of the ported kernel in its launch
+count (a factor + sweep pair is counted once).
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import check_status, load_library
-from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
-                      dtype_code, type_name)
+from ..common import (SMEM_BUDGET_BYTES, Launch, LaunchCounter, cdiv,
+                      check_kernel_args, dtype_code, type_name)
 
 __all__ = ["MAX_PANEL", "panel_step_kernel", "panel_coeff_kernel",
-           "panel_apply_kernel", "factor_launch", "sweep_launch", "LAUNCHES",
+           "panel_apply_kernel", "factor_launch", "sweep_launch",
+           "apply_geometry", "apply_threads", "apply_launch", "LAUNCHES",
            "COEFF_LAUNCHES", "APPLY_LAUNCHES", "APPLY_NORMS_LAUNCHES"]
 
 # Widest panel the kernels take (csrc/panel_common.cuh, kMaxPanel; the
@@ -43,6 +47,11 @@ MAX_PANEL = 64
 SWEEP_COLS, SWEEP_ROWS, SWEEP_WARPS = 32, 32, 8
 SWEEP_THREADS = SWEEP_COLS * SWEEP_WARPS
 FACTOR_THREADS = 512
+# panel_apply (csrc/panel_apply.cu): the column norms in APPLY_NORM_GROUPS
+# partials (rows = g mod 8), 32-row chunks through a ring of APPLY_STAGES
+# stages, a wider slab only while it gives APPLY_MIN_CTAS CTAs and fits
+# one block's shared memory.
+APPLY_NORM_GROUPS, APPLY_ROWS, APPLY_STAGES, APPLY_MIN_CTAS = 8, 32, 3, 128
 
 LAUNCHES = LaunchCounter("panel_step")
 COEFF_LAUNCHES = LaunchCounter("panel_coeff")
@@ -71,10 +80,9 @@ def factor_launch(dtype: torch.dtype, l: int, b: int) -> Launch:
                   (dtype_code(dtype), None, None, l, b, None))
 
 
-# Sweep variants: template flags (computes W, emits O) and C entry point.
-_SWEEPS = {"step": ("true,true", "repro_panel_sweep", 5),
-           "coeff": ("true,false", "repro_panel_coeff_sweep", 5),
-           "apply": ("false,true", "repro_panel_apply", 5)}
+# Sweep variants: template flag (emits O) and C entry point.
+_SWEEPS = {"step": ("true", "repro_panel_sweep"),
+           "coeff": ("false", "repro_panel_coeff_sweep")}
 
 
 def sweep_launch(variant: str, dtype: torch.dtype, l: int, b: int,
@@ -83,14 +91,56 @@ def sweep_launch(variant: str, dtype: torch.dtype, l: int, b: int,
     with a panel of ``b`` columns: one CTA per 32-column slab, a 32-row
     chunk of the panel and of the slab, ``W`` and the warps' norm partials
     in shared memory."""
-    flags, entry, pointers = _SWEEPS[variant]
+    flags, entry = _SWEEPS[variant]
     item, ritem = _sizes(dtype)
     smem = (item * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS
                     + b * SWEEP_COLS) + ritem * SWEEP_WARPS * SWEEP_COLS)
     return Launch(f"panel_sweep_kernel<{type_name(dtype)},{flags}>",
                   (cdiv(n, SWEEP_COLS), 1, 1), (SWEEP_THREADS, 1, 1), smem,
-                  entry, (dtype_code(dtype),) + (None,) * pointers
-                  + (l, b, n, None))
+                  entry, (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
+
+
+def _apply_smem(dtype: torch.dtype, cols: int, b: int) -> int:
+    item, ritem = _sizes(dtype)
+    vec = 16 // item
+    bq = cdiv(b, vec) * vec
+    return (item * (bq * cols + APPLY_STAGES * APPLY_ROWS * (bq + cols))
+            + ritem * APPLY_NORM_GROUPS * cols)
+
+
+def apply_geometry(dtype: torch.dtype, b: int, n: int) -> int:
+    """Slab columns as the C side chooses them, one 16-byte vector a
+    thread a row: the widest of 64 and 32 vectors that still gives
+    ``APPLY_MIN_CTAS`` CTAs and fits one block's shared memory, else 16."""
+    vec = 16 // _sizes(dtype)[0]
+    for cols in (64 * vec, 32 * vec):
+        if (cdiv(n, cols) >= APPLY_MIN_CTAS
+                and _apply_smem(dtype, cols, b) <= SMEM_BUDGET_BYTES):
+            return cols
+    return 16 * vec
+
+
+def apply_threads(dtype: torch.dtype, cols: int) -> int:
+    """Threads of a CTA over ``cols`` slab columns: a thread a vector of a
+    row, in 4 row groups at 64 vectors, else 8 (256, 256 and 128)."""
+    vecs = cols // (16 // _sizes(dtype)[0])
+    return vecs * (4 if vecs == 64 else 8)
+
+
+def apply_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
+    """``panel_apply``'s launch for ``qp`` (l, b), ``w`` (b, n), ``z``
+    (l, n): one CTA per column slab (``apply_geometry``); W's slab, the
+    ring's chunks of ``Q_p`` and ``Z`` and the norm partials in shared
+    memory; 16-byte copies (the C side takes the twin ``<..., false>``
+    when a base is not 16-byte aligned or a row of ``qp`` or ``z`` is not
+    whole 16 bytes; here the shapes decide the latter)."""
+    cols = apply_geometry(dtype, b, n)
+    item = _sizes(dtype)[0]
+    vec = str((b * item) % 16 == 0 and (n * item) % 16 == 0).lower()
+    return Launch(f"panel_apply_kernel<{type_name(dtype)},{cols},{vec}>",
+                  (cdiv(n, cols), 1, 1), (apply_threads(dtype, cols), 1, 1),
+                  _apply_smem(dtype, cols, b), "repro_panel_apply",
+                  (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
 
 
 def _check_panel(name: str, panel: torch.Tensor, z: torch.Tensor) -> None:
@@ -170,9 +220,10 @@ def panel_coeff_kernel(c: torch.Tensor, z: torch.Tensor, r2: torch.Tensor):
 
 def panel_apply_kernel(qp: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                        *, emit_norms: bool = False):
-    """Launch the deflation sweep: ``qp`` (l, b), ``w`` (b, n), ``z``
-    (l, n), contiguous CUDA tensors of one dtype.  Returns ``O = Z - Q_p W``,
-    or ``(O, colnorms^2(O))`` with ``emit_norms``; does not synchronize."""
+    """Launch the deflation kernel (``apply_launch``): ``qp`` (l, b), ``w``
+    (b, n), ``z`` (l, n), contiguous CUDA tensors of one dtype.  Returns
+    ``O = Z - Q_p W``, or ``(O, colnorms^2(O))`` with ``emit_norms``; does
+    not synchronize."""
     dev = check_kernel_args("panel_apply", qp, w, z)
     _check_panel("panel_apply", qp, z)
     (l, b), n = qp.shape, z.shape[1]

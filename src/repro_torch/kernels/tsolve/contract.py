@@ -32,7 +32,10 @@ CONTRACT = KernelContract(
     refs=("tsolve_ref",),
     pairs=(("tsolve", "tsolve_ref"),),
     example=_example,
-    c_constants={"COLS": ("tsolve.cu", "kCols"),
-                 "ROW_GROUPS": ("tsolve.cu", "kRowGroups")},
+    c_constants={"THREADS": ("tsolve.cu", "kSolveThreads"),
+                 "BLOCK_ROWS": ("tsolve.cu", "kSolveRows"),
+                 "DEPTH": ("tsolve.cu", "kSolveDepth"),
+                 "STAGES": ("tsolve.cu", "kSolveStages"),
+                 "SLAB_BYTES": ("tsolve.cu", "kSolveSlabBytes")},
     bad_call=_bad_call,
 )

@@ -2,31 +2,55 @@
 solve (``csrc/tsolve.cu``), which replaces the TPU kernel ``tsolve_kernel``
 in ``repro/kernels/tsolve/kernel.py``.
 
-One launch, one CTA per 32-column slab of ``r2``: row blocks of 32 from
-the bottom, a trailing update from the rows already solved, then the
-diagonal block row by row, dividing by the raw diagonal (no clamp).  Only
-the upper triangle of ``r1`` is read; ``k`` is masked, never padded.
+One launch, one CTA of 8 warps per slab of 512 bytes of a row of ``r2``
+(f64: 64 columns): row blocks of ``BLOCK_ROWS`` from the bottom, a
+trailing update from the rows already solved (R1's band through a ring of
+cp.async stages; f64 on the FP64 tensor cores, the other dtypes on a
+register tile), then the diagonal block, the threads of one warp a
+column from registers, dividing by the raw diagonal (no clamp).  The solved
+rows stay in shared memory where ``k`` rows of the slab fit
+(``tsolve_geometry``), else they are read back from the output.  Only the
+upper triangle of ``r1`` is read; ``k`` is masked, never padded.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import check_status, load_library
-from ..common import (Launch, LaunchCounter, cdiv, check_kernel_args,
-                      dtype_code, type_name)
+from ..common import (SMEM_BUDGET_BYTES, Launch, LaunchCounter, cdiv,
+                      check_kernel_args, dtype_code, type_name)
+from .ref import BLOCK_ROWS
 
-__all__ = ["tsolve_kernel", "tsolve_launch", "LAUNCHES"]
+__all__ = ["tsolve_kernel", "tsolve_geometry", "tsolve_launch", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("tsolve")
-# Columns of r2 per CTA and row groups per CTA (csrc/tsolve.cu).
-COLS, ROW_GROUPS = 32, 8
+# csrc/tsolve.cu: threads per CTA, bytes of a row of the slab, rows of T a
+# ring stage (columns of R1's band tile), stages of the ring.
+THREADS, SLAB_BYTES, DEPTH, STAGES = 256, 512, 16, 4
+
+
+def _smem(item: int, resident: bool, k: int) -> int:
+    cols = SLAB_BYTES // item
+    slab = (cdiv(k, DEPTH) * DEPTH if resident else BLOCK_ROWS) * cols
+    ring = STAGES * (BLOCK_ROWS * DEPTH + (0 if resident else DEPTH * cols))
+    return item * (slab + BLOCK_ROWS * (BLOCK_ROWS + 1) + ring)
+
+
+def tsolve_geometry(dtype: torch.dtype, k: int) -> tuple:
+    """``(slab columns, resident, dynamic shared bytes)`` as the C side
+    chooses them: the solved rows of T stay in shared memory when ``k``
+    rows of the slab, the diagonal triangle and the ring fit one block."""
+    item = torch.empty((), dtype=dtype, device="meta").element_size()
+    resident = _smem(item, True, k) <= SMEM_BUDGET_BYTES
+    return SLAB_BYTES // item, resident, _smem(item, resident, k)
 
 
 def tsolve_launch(dtype: torch.dtype, k: int, n: int) -> Launch:
-    """The launch for ``r1`` (k, k), ``r2`` (k, n): one CTA of 32 x 8
-    threads per 32-column slab, static shared memory only."""
-    return Launch(f"tsolve_kernel<{type_name(dtype)}>", (cdiv(n, COLS), 1, 1),
-                  (COLS, ROW_GROUPS, 1), 0, "repro_tsolve",
+    """The launch for ``r1`` (k, k), ``r2`` (k, n): one CTA of ``THREADS``
+    per slab (``tsolve_geometry``)."""
+    cols, resident, smem = tsolve_geometry(dtype, k)
+    return Launch(f"tsolve_kernel<{type_name(dtype)},{str(resident).lower()}>",
+                  (cdiv(n, cols), 1, 1), (THREADS, 1, 1), smem, "repro_tsolve",
                   (dtype_code(dtype), None, None, None, k, n, None))
 
 

@@ -10,7 +10,8 @@ import torch
 
 __all__ = ["BLOCK_ROWS", "tsolve_ref"]
 
-# Rows per block, as in csrc/tsolve.cu.
+# Rows per block, as in csrc/tsolve.cu (kSolveRows; the kernel contract
+# holds the two equal).
 BLOCK_ROWS = 32
 
 

@@ -255,7 +255,13 @@ def test_bench_module_runs_one_row_on_the_cpu(bench):
         assert rows[0]["cuda_backward_err"] <= 4 * k * np.finfo("float32").eps
 
 
-def test_bench_cli_prints_and_records_rows(tmp_path, capsys):
+def test_bench_cli_prints_and_records_rows(tmp_path, capsys, monkeypatch):
+    """Two CLI runs append their rows to one JSON file, on the first two
+    rows of SMALL_GRID (the module's grid patched: the row-by-row solve of
+    the whole grid takes minutes of CPU, and the CLI's output and rows are
+    the same at any size)."""
+    grid = SMALL_GRID[:2]
+    monkeypatch.setattr(bench_tsolve, "SMALL_GRID", grid)
     path = tmp_path / "rows.json"
     bench_tsolve.main(["--device", "cpu", "--json", str(path)])
     bench_tsolve.main(["--device", "cpu", "--json", str(path)])
@@ -263,16 +269,16 @@ def test_bench_cli_prints_and_records_rows(tmp_path, capsys):
     assert out.startswith("# Table 4 analogue")
     assert "k,n,dtype,device,rowrec_s,lib_s,cuda_s,cuda_backward_err" in out
     rows = json.loads(path.read_text())
-    assert len(rows) == 2 * len(SMALL_GRID)
-    assert [r["k"] for r in rows[:len(SMALL_GRID)]] == \
-        [c.k for c in SMALL_GRID]
+    assert len(rows) == 2 * len(grid)
+    assert [r["k"] for r in rows[:len(grid)]] == [c.k for c in grid]
+    assert [r["k"] for r in rows[len(grid):]] == [c.k for c in grid]
 
 
 # ------------------------------------------------- the DMMA tile's bench
 
 @pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes"),
                                    ("gram",), ("deflate",), ("split",),
-                                   ("flash",)])
+                                   ("apply",), ("tsolve",), ("flash",)])
 def test_bench_dmma_refuses_a_missing_card(parts):
     from repro_torch.benchmarks import bench_dmma
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -314,6 +320,38 @@ def test_bench_dmma_parity_holds_sweep_rows_and_skips_deflate_rows():
     assert not parity([sweep], [other])[0]["bit_equal"]
     assert not parity([sweep], [dict(sweep, kernel="panel_step")])[0][
         "bit_equal"]
+
+
+def test_bench_dmma_parity_holds_apply_rows():
+    """``apply`` rows (panel_apply, which this slice redesigned with the
+    parent's bits) are held to the earlier run's digests of O and of its
+    norms, at the same (dtype, l, b, n); ``tsolve`` rows (new sums) are
+    not held."""
+    from repro_torch.benchmarks.bench_dmma import parity
+    apply = {"what": "apply", "kernel": "panel_apply", "dtype": "float64",
+             "l": 800, "b": 32, "n": 4096, "o_sha256": "o", "r2_sha256": "r"}
+    solve = {"what": "tsolve", "kernel": "tsolve", "dtype": "float64",
+             "k": 400, "n": 16384}
+    assert [r["bit_equal"] for r in parity([apply, solve], [apply])] == [True]
+    assert not parity([apply], [dict(apply, r2_sha256="s")])[0]["bit_equal"]
+    assert not parity([apply], [dict(apply, n=16384)])[0]["bit_equal"]
+
+
+def test_bench_dmma_apply_and_tsolve_work_counts():
+    """panel_apply: l b n multiply-adds (8 real flops each in complex), Q_p,
+    W and Z read and O written once; tsolve: k (k + 1) / 2 n
+    multiply-adds, R1's upper triangle and R2 read and T written once."""
+    from repro_torch.benchmarks.bench_dmma import apply_work, tsolve_work
+    flops, nbytes = apply_work(torch.float64, 800, 32, 2 ** 14)
+    assert flops == 2.0 * 800 * 32 * 2 ** 14 == 838860800.0
+    assert nbytes == 8 * (800 * 32 + 32 * 2 ** 14 + 2 * 800 * 2 ** 14)
+    assert apply_work(torch.complex64, 10, 3, 7) == (
+        8.0 * 10 * 3 * 7, 8 * (10 * 3 + 3 * 7 + 2 * 10 * 7))
+    flops, nbytes = tsolve_work(torch.float64, 400, 2 ** 14)
+    assert flops == 400 * 401 * 2 ** 14 == 2627993600
+    assert nbytes == 8 * (400 * 401 // 2 + 2 * 400 * 2 ** 14)
+    assert tsolve_work(torch.complex128, 3, 5) == (
+        8.0 * 6 * 5, 16 * (6 + 2 * 3 * 5))
 
 
 def test_bench_dmma_deflate_and_flash_work_counts():

@@ -337,7 +337,16 @@ def test_bench_qr_refuses_a_missing_card():
         bench_qr.run(SMALL_GRID[:1], torch.float32)
 
 
-def test_bench_qr_cli_prints_and_records_rows(tmp_path, capsys):
+def test_bench_qr_cli_prints_and_records_rows(tmp_path, capsys, monkeypatch):
+    """The CLI's three tables and the rows it appends, on the first two
+    rows of SMALL_GRID and a narrow acceptance shape (the module's grid and
+    shape patched: the CLI's output and rows are the same at any size; the
+    default sizes take minutes of CPU through the per-column CGS2 loop)."""
+    grid, (l, n, k) = SMALL_GRID[:2], (64, 512, 40)
+    monkeypatch.setattr(bench_qr, "SMALL_GRID", grid)
+    monkeypatch.setattr(bench_qr, "ACCEPT_L", l)
+    monkeypatch.setattr(bench_qr, "ACCEPT_N", n)
+    monkeypatch.setattr(bench_qr, "ACCEPT_K", k)
     path = tmp_path / "rows.json"
     bench_qr.main(["--device", "cpu", "--panels", "32", "--json", str(path)])
     out = capsys.readouterr().out
@@ -345,12 +354,11 @@ def test_bench_qr_cli_prints_and_records_rows(tmp_path, capsys):
     assert ("k,l,n,dtype,device,cgs2_pivoted_s,blocked_b32_s,"
             "blocked_speedup,householder_panel_s,choleskyqr2_panel_s,"
             "cuda_deflate_s,cuda_panel_deflate_s") in out
-    assert "# Acceptance: blocked vs cgs2, l=256 n=4096 k=128 f32" in out
-    assert "fused_panel_step,256,4096,128,32,cpu," in out
+    assert f"# Acceptance: blocked vs cgs2, l={l} n={n} k={k} f32" in out
+    assert f"fused_panel_step,{l},{n},{k},32,cpu," in out
     rows = json.loads(path.read_text())
-    assert len(rows) == len(SMALL_GRID) + 2
-    assert [r["k"] for r in rows[:len(SMALL_GRID)]] == \
-        [c.k for c in SMALL_GRID]
+    assert len(rows) == len(grid) + 2
+    assert [r["k"] for r in rows[:len(grid)]] == [c.k for c in grid]
     assert rows[-2]["panel"] == 32 and "cgs2_s" in rows[-2]
     assert rows[-1]["bench"] == "fused_panel_step"
-    assert rows[-1]["flops"] == bench_qr.fused_flops(256, 4096, 128, 32)
+    assert rows[-1]["flops"] == bench_qr.fused_flops(l, n, k, 32)

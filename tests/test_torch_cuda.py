@@ -232,6 +232,92 @@ def test_cuda_panel_apply_matches_plain(dtype, emit_norms):
             assert _rel(got, panel_apply_ref(qp, w, z)) <= REL_TOL[dtype]
 
 
+# (l, b, n): the distributed main shape (64-vector slabs in f64/c64/c128,
+# 32 in f32), a 4-rank shard (16), l off the 32-row chunk, n off every slab
+# width, b not a multiple of a 16-byte vector, b = 1 and the widest panel.
+APPLY_SHAPES = [(800, 32, 2 ** 14), (800, 32, 4096), (800, 64, 2 ** 14 + 3),
+                (131, 17, 1037), (77, 1, 4099), (800, 64, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,b,n", APPLY_SHAPES)
+def test_cuda_panel_apply_shapes_norms_and_repeat_bits(dtype, l, b, n):
+    """Each slab width the shape selects, ragged l, n and b: O and
+    colnorms^2(O) within tolerance of the plain versions, O the same with
+    and without emit_norms, and a repeated call bit for bit."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(2000 + l + b)
+    qp = _orthonormal(gen, l, b, dtype, dev)
+    w, z = _randn(gen, (b, n), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    o, r2 = panel_apply(qp, w, z, emit_norms=True)
+    assert _rel(o, panel_apply_ref(qp, w, z)) <= REL_TOL[dtype]
+    want_o, want_r2 = panel_apply_norms_ref(qp, w, z)
+    assert _rel(r2, want_r2) <= REL_TOL[dtype] and r2.dtype == want_r2.dtype
+    o2, r22 = panel_apply(qp, w, z, emit_norms=True)
+    assert torch.equal(o, panel_apply(qp, w, z))
+    assert torch.equal(o, o2) and torch.equal(r2, r22)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_panel_apply_unaligned_operands_give_the_aligned_bits(dtype):
+    """z, w and o on bases off 16 bytes (or rows of odd length) take the
+    element-copy twin, with the bits of the 16-byte kernel."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    l, b, n = 200, 32, 1024
+    qp = _orthonormal(gen, l, b, dtype, dev)
+    w, z = _randn(gen, (b, n), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    o, r2 = panel_apply(qp, w, z, emit_norms=True)
+
+    def off(t):  # the same values on a base one element further on
+        u = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+        return u.view(t.shape).copy_(t)
+
+    if dtype != torch.complex128:  # a c128 element is itself 16 bytes
+        assert off(z).data_ptr() % 16 != 0
+    o2, r22 = panel_apply(qp, off(w), off(z), emit_norms=True)
+    assert torch.equal(o, o2) and torch.equal(r2, r22)
+
+
+@pytest.mark.cuda
+def test_cuda_panel_apply_and_tsolve_declared_launches_equal_the_c_side():
+    """apply_launch (slabs of 64, 32 and 16 vectors, 16-byte and element
+    copies) and tsolve_launch (resident and re-reading) equal what the C
+    side launches: grid, block and dynamic shared bytes."""
+    from repro_torch.analysis.kernels import hold_launch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import SMEM_BUDGET_BYTES
+    from repro_torch.kernels.panel_step.kernel import apply_launch
+    from repro_torch.kernels.tsolve.kernel import tsolve_launch
+    _device()
+    lib = _build.load_library()
+    launches = [apply_launch(dtype, l, b, n) for dtype in DTYPES
+                for l, b, n in APPLY_SHAPES + [(800, 17, 2 ** 14), (800, 32, 4095),
+                                               (800, 32, 12288)]]
+    launches += [tsolve_launch(dtype, k, n) for dtype in DTYPES
+                 for k, n in ((1, 5), (400, 2 ** 14), (352, 300), (416, 300),
+                              (1000, 70))]
+    kernels = set()
+    for ln in launches:
+        row = hold_launch(ln, lib, SMEM_BUDGET_BYTES)
+        assert row["equal"] and row["status"] == 0, row
+        assert row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES, row
+        assert row["spills"] == 0, row
+        kernels.add(ln.kernel)
+    # panel_apply<T, slab columns, 16-byte copies>: the three widths (f64
+    # 32, 64 and 128 columns) and both copy widths; tsolve<T, resident>:
+    # both.
+    apply = [k for k in kernels if k.startswith("panel_apply_kernel<")]
+    solve = [k for k in kernels if k.startswith("tsolve_kernel<")]
+    assert {"panel_apply_kernel<float64,32,true>",
+            "panel_apply_kernel<float64,64,true>",
+            "panel_apply_kernel<float64,128,true>",
+            "panel_apply_kernel<float64,128,false>"} <= set(apply)
+    assert {k.rsplit(",", 1)[1] for k in solve} == {"true>", "false>"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b", [32, 16, 7, 64])
@@ -476,7 +562,7 @@ def test_cuda_srht_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k,n", [(1, 5), (31, 40), (33, 257), (150, 100), (400, 300),
-                                 (1000, 70)])
+                                 (1000, 70), (400, 2 ** 14 + 5), (416, 129)])
 def test_cuda_tsolve_matches_plain(dtype, k, n):
     """A well-conditioned R1 (the R of a QR, junk below the diagonal,
     which must not be read): one launch, agreement with the plain
@@ -490,6 +576,28 @@ def test_cuda_tsolve_matches_plain(dtype, k, n):
     got = tsolve(r1, r2)
     assert TSOLVE_LAUNCHES.count == before + 1
     assert _rel(got, tsolve_ref(r1, r2)) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(33, 70), (400, 1000), (1000, 129)])
+def test_cuda_tsolve_never_reads_below_the_diagonal(dtype, k, n):
+    """NaN below R1's diagonal gives the bits of zeros there (the kernel
+    never reads the strict lower triangle), in the resident and the
+    re-reading geometry; a repeated call gives the same bits."""
+    from repro_torch.kernels.tsolve.kernel import tsolve_geometry
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    r = torch.linalg.qr(_randn(gen, (k + 20, k), dtype, dev)).R
+    r2 = _randn(gen, (k, n), dtype, dev)
+    nan = torch.full((k, k), float("nan"), dtype=dtype, device=dev)
+    got = tsolve(r + torch.tril(nan, -1), r2)
+    want = tsolve(torch.triu(r), r2)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want) and torch.equal(got, tsolve(torch.triu(r), r2))
+    assert _rel(got, tsolve_ref(r, r2)) <= REL_TOL[dtype]
+    resident = tsolve_geometry(dtype, k)[1]
+    assert resident == (k <= (352 if dtype == torch.complex128 else 400))
 
 
 @pytest.mark.cuda

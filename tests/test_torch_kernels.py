@@ -31,6 +31,12 @@ from repro_torch.kernels.sketch_matmul.kernel import (  # noqa: E402
 from repro_torch.kernels.panel_gram.kernel import (  # noqa: E402
     GRAM_ROWS, GRAM_STAGES, GRAM_WARP_ROWS, GRAM_WARPS, gram_cols,
     gram_warps, panel_gram_launch)
+from repro_torch.kernels.panel_step.kernel import (  # noqa: E402
+    APPLY_MIN_CTAS, APPLY_NORM_GROUPS, APPLY_ROWS, APPLY_STAGES,
+    apply_geometry, apply_launch)
+from repro_torch.kernels.tsolve.kernel import (  # noqa: E402
+    DEPTH, SLAB_BYTES, STAGES, THREADS, tsolve_geometry, tsolve_launch)
+from repro_torch.kernels.tsolve.ref import BLOCK_ROWS  # noqa: E402
 
 
 def _t(x):
@@ -237,6 +243,108 @@ def test_panel_gram_launch_covers_c_and_z(dtype, b, n):
         assert ln.smem == 196608
     if dtype == torch.float64 and b == 32 and n == 2 ** 14:
         assert ln.grid == (129, 1, 1) and (gp, gc, tj) == (4, 2, 2)
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("b", [1, 17, 32, 64])
+@pytest.mark.parametrize("n", [1, 1037, 4096, 2 ** 14, 2 ** 14 + 3])
+def test_panel_apply_launch_slabs_by_shape(dtype, b, n):
+    """One 16-byte vector of Z a thread a row: the widest of 64 and 32
+    vectors that still gives APPLY_MIN_CTAS CTAs and fits (256 threads in
+    4 or 8 row groups), else 16 (128 threads, 8 row groups); W's slab, the
+    ring of APPLY_STAGES chunks of APPLY_ROWS rows of Q_p and Z, and the
+    APPLY_NORM_GROUPS norm partials within one block's shared memory;
+    16-byte copies when b and n fill whole vectors."""
+    ln = apply_launch(dtype, 800, b, n)
+    item = torch.empty((), dtype=dtype).element_size()
+    ritem = torch.empty((), dtype=dtype).real.element_size()
+    vec = 16 // item
+    cols = apply_geometry(dtype, b, n)
+    bq = round_up(b, vec)
+
+    def smem_of(nc):
+        return (item * (bq * nc + APPLY_STAGES * APPLY_ROWS * (bq + nc))
+                + ritem * APPLY_NORM_GROUPS * nc)
+
+    fits = [v for v in (64, 32) if cdiv(n, v * vec) >= APPLY_MIN_CTAS
+            and smem_of(v * vec) <= SMEM_BUDGET_BYTES]
+    vecs = fits[0] if fits else 16
+    assert cols == vecs * vec
+    smem = smem_of(cols)
+    assert ln.grid == (cdiv(n, cols), 1, 1)
+    assert ln.threads == ({64: 256, 32: 256, 16: 128}[vecs], 1, 1)
+    assert ln.smem == smem <= SMEM_BUDGET_BYTES
+    aligned = str(b * item % 16 == 0 and n * item % 16 == 0).lower()
+    assert ln.kernel == (f"panel_apply_kernel<{type_name(dtype)},{cols},"
+                         f"{aligned}>")
+    assert ln.args == (dtype_code(dtype),) + (None,) * 5 + (800, b, n, None)
+
+
+def test_panel_apply_launch_at_the_distributed_shapes():
+    """f64 at the main row (l=800, b=32): 128-column slabs, 128 CTAs of
+    256 threads at n = 2^14; 32-column slabs, 128 CTAs of 128 threads at a
+    4-rank shard (n = 4096); c128 at b = 64 falls back to the 32-vector
+    slab, whose ring fits."""
+    f64 = torch.float64
+    main = apply_launch(f64, 800, 32, 2 ** 14)
+    assert (main.grid, main.threads, main.smem) == ((128, 1, 1), (256, 1, 1),
+                                                    163840)
+    shard = apply_launch(f64, 800, 32, 4096)
+    assert (shard.grid, shard.threads) == ((128, 1, 1), (128, 1, 1))
+    assert apply_geometry(torch.complex128, 32, 2 ** 14) == 64
+    assert apply_geometry(torch.complex128, 64, 2 ** 14) == 32
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES)
+@pytest.mark.parametrize("k", [1, 31, 33, 150, 352, 353, 400, 401, 416, 417,
+                               1000])
+def test_tsolve_launch_keeps_the_slab_where_it_fits(dtype, k):
+    """One CTA of THREADS per SLAB_BYTES of a row of T; the solved rows
+    stay in shared memory (k rounded up to DEPTH rows of the slab, the
+    diagonal triangle and a ring of STAGES R1 tiles) while that fits one
+    block, else the ring also carries T's rows (re-reading)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    cols = SLAB_BYTES // item
+    n = 2 ** 14 + 5
+    ln = tsolve_launch(dtype, k, n)
+    cols_g, resident, smem = tsolve_geometry(dtype, k)
+    kept = (round_up(k, DEPTH) * cols + BLOCK_ROWS * (BLOCK_ROWS + 1)
+            + STAGES * BLOCK_ROWS * DEPTH) * item
+    reread = (BLOCK_ROWS * cols + BLOCK_ROWS * (BLOCK_ROWS + 1)
+              + STAGES * (BLOCK_ROWS * DEPTH + DEPTH * cols)) * item
+    assert cols_g == cols and resident == (kept <= SMEM_BUDGET_BYTES)
+    assert smem == (kept if resident else reread) <= SMEM_BUDGET_BYTES
+    assert ln.grid == (cdiv(n, cols), 1, 1) and ln.threads == (THREADS, 1, 1)
+    assert ln.smem == smem
+    assert ln.kernel == (f"tsolve_kernel<{type_name(dtype)},"
+                         f"{str(resident).lower()}>")
+    # the paper's row keeps its slab in f32, f64 and c64
+    if k == 400:
+        assert resident == (dtype != torch.complex128)
+    if dtype == torch.float64 and k == 400:
+        assert (ln.grid[0], ln.smem) == (257, 229632)
+
+
+def test_panel_apply_and_tsolve_constants_pinned_to_the_c_side():
+    """The Python geometry constants equal the CUDA sources' (the kernel
+    contracts hold the same pairs; this reads the sources directly)."""
+    from pathlib import Path
+
+    from repro_torch.analysis.kernels import c_constant
+    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    for value, fname, name in (
+            (APPLY_NORM_GROUPS, "panel_apply.cu", "kApplyNormGroups"),
+            (APPLY_ROWS, "panel_apply.cu", "kApplyRows"),
+            (APPLY_STAGES, "panel_apply.cu", "kApplyStages"),
+            (APPLY_MIN_CTAS, "panel_apply.cu", "kApplyMinCtas"),
+            (THREADS, "tsolve.cu", "kSolveThreads"),
+            (BLOCK_ROWS, "tsolve.cu", "kSolveRows"),
+            (DEPTH, "tsolve.cu", "kSolveDepth"),
+            (STAGES, "tsolve.cu", "kSolveStages"),
+            (SLAB_BYTES, "tsolve.cu", "kSolveSlabBytes"),
+            (SMEM_BUDGET_BYTES, "tsolve.cu", "kSolveSmemBudget"),
+            (SMEM_BUDGET_BYTES, "panel_apply.cu", "kApplySmemBudget")):
+        assert c_constant(csrc / fname, name) == value, (fname, name)
 
 
 # -------------------------------------------------------------- panel_step
