@@ -11,8 +11,9 @@ in order, printing one JSON line per phase:
                  instructions of each (``cuobjdump -sass``): DMMA in the f64
                  kernels of sketch_accum, sketch_matmul, project_out,
                  panel_deflate and tsolve, none in their f32 kernels nor in
-                 panel_gram's and panel_apply's, the TF32 HMMA in every
-                 flash kernel, no spills in any;
+                 panel_gram's, panel_apply's, fwht's and panel_step's
+                 (factor and sweeps), the TF32 HMMA in every flash kernel,
+                 no spills in any;
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main path's shapes, for f32, f64, c64 and c128, with
                  the tolerance stated; sketch_accum's chunk invariance
@@ -23,7 +24,9 @@ in order, printing one JSON line per phase:
                  backward error, on the bench's ill-conditioned R1, and at
                  k=1000 (T re-read) with NaN below R1's diagonal;
                  panel_apply at a 4-rank shard (n=4096) and a ragged
-                 shape, repeated bit for bit;
+                 shape, repeated bit for bit; panel_step at ragged l and n
+                 with b = 1, 17, 33, 64 and in the re-reading geometry
+                 (l=4000); fwht at m = 1, 2, 64, 512 (n = 1001) and 2^18;
                  project_out (k=400) and panel_deflate (b=32) at l=800,
                  n=2^14, both outputs of panel_deflate, and panel_deflate
                  at b = 1, 16, 32, 64, at a ragged l and n, in the
@@ -37,8 +40,14 @@ in order, printing one JSON line per phase:
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
                  kernels and the paper's eq. (3) bound;
+  srht     -- ``rid(seed, A, 400, sketch_kind="srht")`` on a matrix of the
+                 main row's shape: the fwht kernel once a factor; eq. (3)
+                 for it reported (the blocked engine's reading, ROADMAP
+                 Queue C) and for CGS2 on the same sketch gated;
   4. default  -- ``rid(seed, A, 100)`` (srft) on a complex128 ``A`` of
                  2^14 x 2^14 (the paper's row k=100, m=n=2^14);
+                 in phases main, srht, default and Table 2, no function of
+                 a kernel package's ref.py is given a CUDA tensor;
   5. distributed -- ``rid_distributed(seed, A_loc, 400, group=g,
                  qr_impl="panel_parallel")`` on a one-rank NCCL group at
                  the main path's matrix: launch counts, first and warm wall
@@ -54,7 +63,8 @@ in order, printing one JSON line per phase:
                  Table 2 (bench_sketch) and Table 4 (bench_tsolve) at the
                  main row in f64, Table 1 (bench_total, srft) at the row
                  k=100, m=n=2^14 in c128, with the launch counts of
-                 sketch_matmul, fwht and tsolve per call; Table 3
+                 sketch_matmul, fwht (srht_s and srht_cuda_s) and tsolve
+                 per call; Table 3
                  (bench_qr) at the main row in f64 and its fused-vs-split
                  sweep (l=256, n=4096, k=128, f32), Table 5 (bench_error)
                  at the row k=100, m=n=2^14 in c128 and its known-spectrum
@@ -81,8 +91,8 @@ in order, printing one JSON line per phase:
                  control present, big_copy launched on that path; every
                  production kernel's declared launch (grid, block, dynamic
                  shared bytes) equal to the C side's and within 232448 B
-                 (panel_deflate, panel_apply, tsolve and flash also at the
-                 main path's shapes, panel_deflate and tsolve in their
+                 (panel_deflate, panel_apply, tsolve, flash, panel_step
+                 and fwht also at the main path's shapes, panel_deflate and tsolve in their
                  re-reading geometries, panel_apply at a 4-rank shard),
                  big_copy's 64 MiB example over it; then big_copy bit-equal
                  to big_copy_ref at fitting f32 and c128 shapes, its
@@ -90,8 +100,13 @@ in order, printing one JSON line per phase:
                  after the refusal held to its plain version;
   8. times    -- each kernel's time at the main path's shapes beside its
                  bound (and, as achieved TFLOP/s and bound / time, the
-                 share of it), its plain version's time and the library
-                 call's (panel_gram also with n = 0, the Gram alone)
+                 share of it; and the host's time a call, unsynchronized), its plain version's time and the library
+                 call's (panel_gram also with n = 0, the Gram alone;
+                 panel_step, panel_coeff and tsolve also timed three ways:
+                 this script's rounds of events (the first is ``ms``),
+                 bench_dmma's least of two rounds, and under
+                 ``torch.profiler`` their kernels' device time and device
+                 span a call, with the SM clock)
                  (flash at granite's serve shape, beside
                  ``F.scaled_dot_product_attention``, its bound two TF32
                  passes on the tensor cores; big_copy at the
@@ -255,6 +270,7 @@ def main() -> int:
         from repro_torch.kernels.sketch_matmul.ref import sketch_matmul_ref
         from repro_torch.kernels.srht import fwht, fwht_factors
         from repro_torch.kernels.srht.kernel import LAUNCHES as FWHT_LAUNCHES
+        from repro_torch.kernels.srht.kernel import fwht_pass_launch
         from repro_torch.kernels.srht.ref import fwht_ref
         from repro_torch.kernels.tsolve import tsolve
         from repro_torch.kernels.tsolve.kernel import (
@@ -264,6 +280,8 @@ def main() -> int:
                                             bench_sketch, bench_total,
                                             bench_tsolve)
         from repro_torch.core import resolve_panel
+        from repro_torch.benchmarks.bench_dmma import (
+            _cuda_ms as bench_cuda_ms)
         from repro_torch.benchmarks.bench_tsolve import (backward_error,
                                                          bench_system)
         from repro_torch.benchmarks.common import ITERS, WARMUP
@@ -306,6 +324,8 @@ def main() -> int:
         from repro_torch.kernels.panel_step.kernel import (apply_geometry,
                                                            apply_launch,
                                                            factor_launch,
+                                                           factor_resident,
+                                                           step_launches,
                                                            sweep_launch)
         from repro_torch.kernels.tsolve.kernel import (tsolve_geometry,
                                                        tsolve_launch)
@@ -400,6 +420,13 @@ def main() -> int:
         f"panel_apply_kernel<{t},{nc * 16 // size},{vec}>"
         for t, size in zip(types, (4, 8, 8, 16)) for nc in (16, 32, 64)
         for vec in ("true", "false")]
+    # fwht<T, register rows log2, 16-byte copies> and panel_step's factor
+    # <T, resident>: exact adds and in-order DFMA / FFMA chains, never a
+    # tensor core (their bits are the parent's).
+    tf = ("true", "false")
+    fma_kernels += [f"fwht_kernel<{t},{rl},{v}>" for t in types
+                    for rl in range(5) for v in tf] + [
+        f"panel_factor_kernel<{t},{r}>" for t in types for r in tf]
     flash_kernels = [f"flash_fwd_kernel<{q},{kv},{hd}>"
                      for q in ("float32", "bfloat16")
                      for kv in ("float32", "bfloat16") for hd in (64, 128, 256)]
@@ -725,6 +752,54 @@ def main() -> int:
         check(err <= tol and same,
               f"tsolve {name} k={k}: rel err {err}, junk read {not same}")
         del R1, R2, junk, got
+        # panel_step at ragged shapes: l not a multiple of the rings'
+        # chunks, n not of the slabs, b = 1, 17, 33 and 64 (the factor's
+        # unrolled solves and its block Cholesky past 32), and l = 4000,
+        # where the factor re-reads its panel; each against its plain
+        # version and repeated for its bits.
+        cases = []
+        for l, b, n in ((777, 1, 1001), (777, 17, 1001), (777, 33, 1001),
+                        (777, 64, 1001), (4000, 32, 333)):
+            c, z = randn_own((l, b), dtype), randn_own((l, n), dtype)
+            got = panel_step(c, z)
+            again = panel_step(c, z, emit_w=False)
+            want = panel_step_ref(c, z)
+            torch.cuda.synchronize()
+            cases.append({
+                "l": l, "b": b, "n": n,
+                "factor_resident": factor_resident(dtype, l, b),
+                "rel_err": max(rel_err(u, v) for u, v in zip(got, want)),
+                "repeat_same_bits": bool(
+                    torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])
+                    and torch.equal(got[3], again[3]))})
+            del c, z, got, again, want
+        emit({"phase": "kernels", "kernel": "panel_step", "dtype": name,
+              "cases": cases, "rel_tol": tol})
+        check(all(c["rel_err"] <= tol and c["repeat_same_bits"]
+                  for c in cases), f"panel_step {name}: ragged {cases}")
+        check(not cases[-1]["factor_resident"],
+              f"panel_step {name}: l=4000 kept its panel resident")
+        # fwht at ragged shapes: m = 1, 2, 64, a single 2^9 sweep with a
+        # row of n = 1001 elements (one element a copy), two 2^9 sweeps.
+        cases = []
+        for m, n in ((1, 3), (2, 3), (64, 40), (512, 1001), (2 ** 18, 24)):
+            x = randn_own((m, n), dtype)
+            before = FWHT_LAUNCHES.count
+            got = fwht(x)
+            launches = FWHT_LAUNCHES.count - before
+            want = fwht_ref(x)
+            torch.cuda.synchronize()
+            cases.append({"m": m, "n": n, "launches": launches,
+                          "factors_log2": fwht_factors(m),
+                          "bit_equal": bool(torch.equal(got, want)),
+                          "rel_err": rel_err(got, want)})
+            del x, got, want
+        emit({"phase": "kernels", "kernel": "fwht", "dtype": name,
+              "cases": cases, "rel_tol": 0.0 if not dtype.is_complex else tol})
+        check(all(c["launches"] == len(c["factors_log2"]) and (
+            c["bit_equal"] or (dtype.is_complex and c["rel_err"] <= tol))
+            for c in cases), f"fwht {name}: ragged {cases}")
         torch.cuda.empty_cache()
 
     # The CGS kernels of paper Table 3 at its main row: project_out against
@@ -1063,6 +1138,35 @@ def main() -> int:
         torch.cuda.empty_cache()
         return counts, gcounts
 
+    def ref_calls_on_card(fn):
+        """``fn()`` with every function of the kernel packages' ref.py
+        modules, wherever the port holds it, wrapped: returns ``fn``'s
+        result and the names of those that were given a CUDA tensor (the
+        port sends CUDA tensors to its kernels only)."""
+        import inspect
+        hits, targets = set(), []
+        for modname, mod in list(sys.modules.items()):
+            if mod is None or not modname.startswith("repro_torch"):
+                continue
+            for attr, obj in list(vars(mod).items()):
+                if (inspect.isfunction(obj)
+                        and obj.__module__.startswith("repro_torch.kernels.")
+                        and obj.__module__.endswith(".ref")):
+                    targets.append((mod, attr, obj))
+
+        def wrap(f):
+            def guarded(*args, **kwargs):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (*args, *kwargs.values())):
+                    hits.add(f"{f.__module__}.{f.__name__}")
+                return f(*args, **kwargs)
+            return guarded
+        with contextlib.ExitStack() as stack:
+            for mod, attr, obj in targets:
+                stack.enter_context(mock.patch.object(mod, attr, wrap(obj)))
+            out = fn()
+        return out, sorted(hits)
+
     def run_rid(m, n, k, dtype, **kw):
         A = lowrank(m, n, k, dtype)
         torch.cuda.synchronize()
@@ -1081,10 +1185,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
-    res = run_rid(MAIN_M, MAIN_N, MAIN_K, torch.float64,
-                  sketch_kind="gaussian")
+    res, ref_hits = ref_calls_on_card(lambda: run_rid(
+        MAIN_M, MAIN_N, MAIN_K, torch.float64, sketch_kind="gaussian"))
     emit({"phase": "main", "call": "rid(seed, A, 400, sketch_kind='gaussian')",
-          **res})
+          **res, "ref_py_given_cuda_tensors": ref_hits})
+    check(not ref_hits, f"main: CUDA tensors reached {ref_hits}")
     n_panels = math.ceil(MAIN_K / PANEL)
     check(res["launches"]["sketch_accum"] == 1,
           f"main: sketch_accum launched {res['launches']['sketch_accum']} "
@@ -1095,9 +1200,59 @@ def main() -> int:
     check_id(res, "main")
     main_launches = res["launches"]
 
+    # ------------------- srht: the main row through the fwht kernel
+    # rid(sketch_kind="srht") on a matrix of the main row's shape from a
+    # generator of its own (the later phases keep their draws): the fwht
+    # kernel once a factor, panel_step once a panel, no sketch_accum.
+    # eq. (3) is reported for the blocked engine and gated for CGS2 on the
+    # same sketch.  The blocked engine reads above the bound on this draw;
+    # so does the reference's blocked engine on the same sketch at smaller
+    # exact-rank shapes, with the port's pivots (bench_error --witness,
+    # tests/test_torch_eq3_witness.py; ROADMAP Queue C).
+    gen_srht = torch.Generator(device=dev)
+    gen_srht.manual_seed(SEED + 30)
+
+    def run_srht():
+        A = torch.randn((MAIN_M, MAIN_K), generator=gen_srht,
+                        dtype=torch.float64, device=dev) @ torch.randn(
+            (MAIN_K, MAIN_N), generator=gen_srht, dtype=torch.float64,
+            device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dec = rid(SEED, A, MAIN_K, sketch_kind="srht")
+        torch.cuda.synchronize()
+        out = {"m": MAIN_M, "n": MAIN_N, "k": MAIN_K, "l": 2 * MAIN_K,
+               "dtype": "float64", "launches": read_counts(),
+               "wall_s": time.perf_counter() - t0,
+               **eq3_report(A, dec, MAIN_K)}
+        Y = sketch(SEED, A, 2 * MAIN_K, kind="srht").Y
+        out["cgs2_same_sketch"] = eq3_report(
+            A, rid_from_sketch(A, Y, MAIN_K, qr_impl="cgs2"), MAIN_K)
+        del A, dec, Y
+        torch.cuda.empty_cache()
+        return out
+    res, ref_hits = ref_calls_on_card(run_srht)
+    emit({"phase": "srht", "call": "rid(seed, A, 400, sketch_kind='srht')",
+          **res, "eq3_gated": "cgs2_same_sketch only",
+          "ref_py_given_cuda_tensors": ref_hits})
+    check(not ref_hits, f"srht: CUDA tensors reached {ref_hits}")
+    check(res["launches"]["fwht"] == len(fwht_factors(MAIN_M))
+          and res["launches"]["panel_step"] == n_panels
+          and res["launches"]["sketch_accum"] == 0,
+          f"srht: launches {res['launches']}")
+    for what in (res, res["cgs2_same_sketch"]):
+        check(what["J_distinct"] and what["J_in_range"] and what["P_J_identity"]
+              and what["finite"], "srht: J or P malformed")
+    check(res["cgs2_same_sketch"]["error_over_bound"] <= 1,
+          "srht: eq.(3) violated by CGS2 on the srht sketch")
+
     # ----------------------------------------- 4. default path, c128 srft
-    res = run_rid(DEFAULT_M, DEFAULT_N, DEFAULT_K, torch.complex128)
-    emit({"phase": "default", "call": "rid(seed, A, 100)", **res})
+    res, ref_hits = ref_calls_on_card(lambda: run_rid(
+        DEFAULT_M, DEFAULT_N, DEFAULT_K, torch.complex128))
+    emit({"phase": "default", "call": "rid(seed, A, 100)", **res,
+          "ref_py_given_cuda_tensors": ref_hits})
+    check(not ref_hits, f"default: CUDA tensors reached {ref_hits}")
     n_panels = math.ceil(DEFAULT_K / PANEL)
     check(res["launches"]["panel_step"] == n_panels,
           f"default: panel_step launched {res['launches']['panel_step']} "
@@ -1124,11 +1279,12 @@ def main() -> int:
         return all(math.isfinite(v) and v > 0 for r in rows
                    for key, v in r.items() if key.endswith("_s"))
 
-    sk_rows, sk_counts, sk_wall = bench(
-        lambda: bench_sketch.run([MAIN], torch.float64))
+    (sk_rows, sk_counts, sk_wall), ref_hits = ref_calls_on_card(
+        lambda: bench(lambda: bench_sketch.run([MAIN], torch.float64)))
+    check(not ref_hits, f"bench_sketch: CUDA tensors reached {ref_hits}")
     n_factors = len(fwht_factors(MAIN_M))
     per_call = {"sketch_matmul": sk_counts["sketch_matmul"] / calls,
-                "fwht": sk_counts["fwht"] / calls,
+                "fwht": sk_counts["fwht"] / (2 * calls),
                 "sketch_accum": sk_counts["sketch_accum"] / calls}
     emit({"phase": "bench", "table": 2,
           "call": "bench_sketch.run([PAPER_GRID[2]], torch.float64)",
@@ -1136,11 +1292,13 @@ def main() -> int:
           "launches_per_call": per_call, "calls_per_column": calls,
           "wall_s": sk_wall})
     check(finite_times(sk_rows), f"bench_sketch: rows {sk_rows}")
+    # fwht: the srht_s column (srht_sketch) and the srht_cuda_s column.
     check(sk_counts["sketch_matmul"] == calls
-          and sk_counts["fwht"] == calls * n_factors
+          and sk_counts["fwht"] == 2 * calls * n_factors
           and sk_counts["sketch_accum"] == calls,
           f"bench_sketch: launches {sk_counts}, expected {calls} "
-          f"sketch_matmul, {calls * n_factors} fwht, {calls} sketch_accum")
+          f"sketch_matmul, {2 * calls * n_factors} fwht, {calls} "
+          f"sketch_accum")
 
     ts_rows, ts_counts, ts_wall = bench(
         lambda: bench_tsolve.run([MAIN], torch.float64))
@@ -1462,7 +1620,7 @@ def main() -> int:
     lib = _build.load_library()
     for name, launches in (
             ("panel_coeff", (factor_launch(f32, 256, 32),
-                             sweep_launch("coeff", f32, 256, 32, 4096))),
+                             sweep_launch(f32, 256, 32, 4096))),
             ("panel_apply", (apply_launch(f32, 256, 32, 4096),)),
             ("panel_apply(f64, main)", (apply_launch(
                 torch.float64, 2 * MAIN_K, PANEL, MAIN_N),)),
@@ -1486,7 +1644,28 @@ def main() -> int:
                 torch.float64, 1200, PANEL, MAIN_N),)),
             ("flash(granite prefill)", (flash_launch(
                 f32, torch.bfloat16, 32, SERVE_LONG[-1], SERVE_LONG[-1],
-                64),))):
+                64),)),
+            ("panel_step(f64, main)", step_launches(
+                torch.float64, 2 * MAIN_K, PANEL, MAIN_N)),
+            ("panel_step(c128, main)", step_launches(
+                torch.complex128, 2 * MAIN_K, PANEL, MAIN_N)),
+            ("panel_step(f64, b=64)", step_launches(
+                torch.float64, 2 * MAIN_K, 2 * PANEL, MAIN_N)),
+            ("panel_step(f64, re-reading)", step_launches(
+                torch.float64, 4000, PANEL, 2000)),
+            ("panel_step(f32, 4-rank shard)", step_launches(
+                f32, 2 * MAIN_K, PANEL, MAIN_N // 4)),
+            ("fwht(f64, main)", tuple(
+                fwht_pass_launch(torch.float64, MAIN_M, MAIN_N, f,
+                                 1 << sum(fwht_factors(MAIN_M)[:i]),
+                                 1.0 / math.sqrt(MAIN_M)
+                                 if i == len(fwht_factors(MAIN_M)) - 1
+                                 else 1.0)
+                for i, f in enumerate(fwht_factors(MAIN_M)))),
+            ("fwht(f64, 2^18 x 24)", tuple(
+                fwht_pass_launch(torch.float64, 2 ** 18, 24, f,
+                                 1 << sum(fwht_factors(2 ** 18)[:i]), 1.0)
+                for i, f in enumerate(fwht_factors(2 ** 18))))):
         geometry[name] = [hold_launch(ln, lib, SMEM_BUDGET_BYTES)
                           for ln in launches]
     geometry["big_copy"] = [hold_launch(ln, copy_library(),
@@ -1508,7 +1687,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 23 and all(
+    check(len(geometry) == 30 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1560,23 +1739,83 @@ def main() -> int:
     dtype, esize = torch.float64, 8
     l, m, n, b = 2 * MAIN_K, MAIN_M, MAIN_N, PANEL
 
+    def sm_clock() -> str:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                 "clocks_throttle_reasons.active", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30)
+            return out.stdout.strip()
+        except (OSError, subprocess.TimeoutExpired):
+            return "unknown"
+
+    def readings(fn, kernels: int, reps: int = 20) -> dict:
+        """``fn`` (``kernels`` launches a call) timed three ways here:
+        ``cuda_ms`` (one round of ``reps`` calls), ``bench_dmma``'s (the
+        least of two rounds), and under ``torch.profiler``, three calls and
+        then ``reps`` calls, of which the last ``reps * kernels`` device
+        events count (the trace's first two are lost): their time a
+        call, and the device span a call (the first one's start to the last
+        one's end), whose excess is gaps between kernels; ``cuda_ms`` once
+        more after the trace; the SM clock, power draw and throttle reasons
+        before and after."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        clock_before = sm_clock()
+        smoke_ms = cuda_ms(fn, reps)
+        bench_ms = bench_cuda_ms(fn, reps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 3):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        check(len(spans) >= reps * kernels,
+              f"times: the trace recorded {len(spans)} device events")
+        spans = spans[-reps * kernels:]
+        busy_ms = sum(b - a for a, b in spans) / 1e3 / reps
+        span_ms = (max(b for _, b in spans) - spans[0][0]) / 1e3 / reps
+        return {"smoke_cuda_ms": smoke_ms, "bench_cuda_ms": bench_ms,
+                "trace_device_ms_per_call": busy_ms,
+                "trace_span_ms_per_call": span_ms,
+                "trace_gap_ms_per_call": span_ms - busy_ms,
+                "smoke_cuda_ms_after_trace": cuda_ms(fn, reps),
+                "sm_clock_before": clock_before, "sm_clock_after": sm_clock()}
+
     def timed(name, source, replaces, launches, err, fn, plain, library,
-              flops, nbytes, shape, reps=20, plain_reps=5, **extra):
+              flops, nbytes, shape, reps=20, plain_reps=5, three_ways=0,
+              **extra):
         """The kernels-line entry of one kernel, timed at ``shape``, with
         its bound from ``flops`` and ``nbytes``; also emitted as a phase
-        line with ``extra``."""
+        line with ``extra``.  ``three_ways``, the kernels a call if given:
+        ``ms`` is the first of three rounds of ``cuda_ms`` (all three
+        kept), then ``readings``."""
         t_flop, t_byte = flops / PEAK_F64_FLOPS, nbytes / HBM_BYTES_PER_S
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0) / reps
+        rounds_ms = [cuda_ms(fn, reps) for _ in range(3 if three_ways
+                                                      else 1)]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
-               "max_abs_err": err, "ms": cuda_ms(fn, reps),
+               "max_abs_err": err, "ms": rounds_ms[0],
                "plain_ms": cuda_ms(plain, plain_reps),
                "bound_ms": 1e3 * max(t_flop, t_byte),
                "bound_by": "operations" if t_flop >= t_byte else "bytes",
                "library_ms": cuda_ms(library, reps) if library else None}
+        if three_ways:
+            extra["readings"] = {"first_rounds_ms": rounds_ms,
+                                 **readings(fn, three_ways, reps)}
         emit({"phase": "times", "kernel": name, "dtype": "float64", **shape,
               "flops": flops, "bytes": nbytes, "peak": PEAK_NAME, **extra,
               **{key: row[key] for key in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")},
+              "enqueue_ms": enqueue_ms,
               "tflops": flops / row["ms"] / 1e9,
               "library_tflops": (flops / row["library_ms"] / 1e9
                                  if row["library_ms"] else None),
@@ -1608,7 +1847,7 @@ def main() -> int:
         main_launches["panel_step"], panel_err_f64,
         lambda: panel_step(c, z, emit_w=False), lambda: panel_step_ref(c, z),
         None, factor_flops + 4.0 * l * b * n + 2.0 * l * n,
-        esize * (2 * l * b + 2 * l * n + n), shape)
+        esize * (2 * l * b + 2 * l * n + n), shape, three_ways=3)
     r2in = colnorms2(z)
     # factor as in panel_step; W (2 l b n) and its norms (2 b n).  Bytes:
     # c, z, r2 in; Q_p, W, r2 out.
@@ -1618,7 +1857,7 @@ def main() -> int:
         dist_launches["panel_coeff"], split_err_f64["panel_coeff"],
         lambda: panel_coeff(c, z, r2in), lambda: panel_coeff_ref(c, z, r2in),
         None, factor_flops + 2.0 * l * b * n + 2.0 * b * n,
-        esize * (2 * l * b + l * n + b * n + 2 * n), shape)
+        esize * (2 * l * b + l * n + b * n + 2 * n), shape, three_ways=2)
     qp, w, _ = panel_coeff(c, z, r2in)
     # O = Z - Q_p W (2 l b n); bytes: Q_p, W, Z in, O out.
     apply_flops, apply_bytes = 2.0 * l * b * n, esize * (l * b + b * n + 2 * l * n)
@@ -1680,7 +1919,7 @@ def main() -> int:
         lambda: tsolve(R1, R), lambda: tsolve_ref(R1, R),
         lambda: torch.linalg.solve_triangular(R1, R, upper=True),
         1.0 * kk * kk * n, esize * (kk * kk + 2 * kk * n), {"k": kk, "n": n},
-        plain_reps=3)
+        plain_reps=3, three_ways=1)
     del R1, R, tsolve_main_f64
 
     # The CGS kernels of Table 3 at phase 2's shapes; launches from the

@@ -3,7 +3,8 @@ the panel Gram, the panel deflation and application, the triangular solve
 and flash attention, on the card.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_dmma \
-        [--parts probe kernels shapes gram deflate split apply tsolve flash] \
+        [--parts probe kernels shapes gram deflate split apply tsolve flash
+                 fwht rid] \
         [--json PATH] [--against PATH]
 
 Prints one JSON line per measurement (and appends them to ``--json``):
@@ -30,8 +31,10 @@ Prints one JSON line per measurement (and appends them to ``--json``):
               b=32, n=2^14) and the split sweep's (l=256, b=16 / 32 / 64,
               n=4096), beside the ``q.mH @ z`` / ``addmm`` pair, with
               digests of O and W; then ``panel_step``,
-              ``panel_coeff`` and ``panel_apply`` at the main shape in the
-              four dtypes, with digests of their outputs (``sweep`` rows);
+              ``panel_coeff`` and ``panel_apply`` at l=800, n=2^14 and
+              b = 16 / 32 / 64 in the four dtypes, with digests of their
+              outputs, and panel_step's factor and sweep launches timed
+              apart through their C entry points (``sweep`` rows);
   split    -- ``bench_qr``'s fused-vs-split panel loop (l=256, n=4096,
               k=128, f32) at b = 16 / 32 / 64: each path's host seconds
               (``time_fn``, ``SPLIT_ROUNDS`` rounds, the paths alternating)
@@ -50,12 +53,19 @@ Prints one JSON line per measurement (and appends them to ``--json``):
               heads, hd 64, S=T=4000, causal) and h2o-danube-1.8b's (32
               heads, hd 80, S=T=6144, window 4096), f32 q and bf16 k/v as
               the model passes them, beside
-              ``F.scaled_dot_product_attention`` in f32 on the same inputs.
+              ``F.scaled_dot_product_attention`` in f32 on the same inputs;
+  fwht     -- ``fwht`` at m=2^16, n=2^14 in f32, f64 and c64, c128 at
+              n=2^12 (as the smoke), f64 at m=2^18, n=2^12: ms, launches,
+              the bytes its sweeps move a second, the one-pass byte bound
+              and its share, and a digest of the output;
+  rid      -- the main row's ``rid(0, A, 400, sketch_kind="gaussian")``
+              (f64, m=2^16, n=2^14, A from seed 1000): the warm median
+              host seconds and digests of J and P.
 
-``--against PATH`` compares the ``gram``, ``sweep`` and ``apply`` rows'
-digests with those of an earlier run's ``--json`` file (same inputs: each
-dtype draws from its own seed) and exits 1 unless every such row is
-bit-equal.
+``--against PATH`` compares the ``gram``, ``sweep``, ``apply``, ``fwht``
+and ``rid`` rows' digests with those of an earlier run's ``--json`` file
+(same inputs: each dtype draws from its own seed) and exits 1 unless every
+such row is bit-equal.
 
 Needs a card (and nvcc).  All parts but ``probe`` use only the wrappers'
 public signatures, so the same file times an older checkout's kernels
@@ -76,10 +86,11 @@ import torch
 from .common import append_json_rows, randn, time_fn
 
 __all__ = ["PARTS", "run", "parity", "deflate_work", "apply_work",
+           "fwht_work",
            "tsolve_work", "flash_work", "live_pairs", "device_summary"]
 
 PARTS = ("probe", "kernels", "shapes", "gram", "deflate", "split", "apply",
-         "tsolve", "flash")
+         "tsolve", "flash", "fwht", "rid")
 DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 L, M, N, K = 800, 2 ** 16, 2 ** 14, 400
 GRAM_BS = (16, 32, 64)
@@ -92,6 +103,11 @@ SPLIT_ROUNDS = 5
 APPLY_SHAPES = ((L, 32, N), (L, 32, 4096), (256, 16, 4096), (256, 32, 4096),
                 (256, 64, 4096))
 TSOLVE_KS = (100, K, 1000)
+SWEEP_BS = (16, 32, 64)
+# fwht: (dtype, m, n); c128 at a quarter of n, as the smoke runs it.
+FWHT_SHAPES = ((torch.float32, M, N), (torch.float64, M, N),
+               (torch.complex64, M, N), (torch.complex128, M, N // 4),
+               (torch.float64, 4 * M, N // 4))
 # flash: (case, B*H, S=T, hd, window) of the two models' long prefills.
 FLASH_SHAPES = (("granite-3-2b prefill", 32, 4000, 64, None),
                 ("h2o-danube-1.8b prefill", 32, 6144, 80, 4096))
@@ -361,26 +377,99 @@ def _deflate_rows(dev, out: list) -> None:
                 "o_sha256": _digest(o), "w_sha256": _digest(w)})
             del q, z
             torch.cuda.empty_cache()
+    from ..kernels import _build
+    from ..kernels.common import dtype_code
+    lib = _build.load_library()
     for i, dtype in enumerate(DTYPES):
         gen = torch.Generator(device=dev)
         gen.manual_seed(400 + i)
-        b = 32
-        c, z = randn(gen, (L, b), dtype, dev), randn(gen, (L, N), dtype, dev)
-        qp, o, w, r2 = panel_step(c, z)
-        r2in = colnorms2(z)
-        _, cw, cr2 = panel_coeff(c, z, r2in)
-        ao, ar2 = panel_apply(qp, w, z, emit_norms=True)
-        for kernel, outs, call in (
-                ("panel_step", (qp, o, w, r2), lambda: panel_step(c, z)),
-                ("panel_coeff", (cw, cr2), lambda: panel_coeff(c, z, r2in)),
-                ("panel_apply", (ao, ar2),
-                 lambda: panel_apply(qp, w, z, emit_norms=True))):
-            out.append({"what": "sweep", "kernel": kernel,
-                        "dtype": str(dtype).removeprefix("torch."), "l": L,
-                        "b": b, "n": N, "ms": _cuda_ms(call, 20),
-                        "outputs_sha256": [_digest(t) for t in outs]})
-        del c, z, qp, o, w, r2, r2in, cw, cr2, ao, ar2
+        for b in SWEEP_BS:
+            c = randn(gen, (L, b), dtype, dev)
+            z = randn(gen, (L, N), dtype, dev)
+            qp, o, w, r2 = panel_step(c, z)
+            r2in = colnorms2(z)
+            _, cw, cr2 = panel_coeff(c, z, r2in)
+            ao, ar2 = panel_apply(qp, w, z, emit_norms=True)
+            # panel_step's two launches apart, through their C entries.
+            code, stream = dtype_code(dtype), torch.cuda.current_stream(
+                dev).cuda_stream
+            q2, o2, w2, r22 = (torch.empty_like(qp), torch.empty_like(o),
+                               torch.empty_like(w), torch.empty_like(r2))
+
+            def factor():
+                _build.check_status("panel_factor", lib.repro_panel_factor(
+                    code, c.data_ptr(), q2.data_ptr(), L, b, stream))
+
+            def sweep():
+                _build.check_status("panel_sweep", lib.repro_panel_sweep(
+                    code, qp.data_ptr(), z.data_ptr(), o2.data_ptr(),
+                    w2.data_ptr(), r22.data_ptr(), L, b, N, stream))
+            factor_ms, sweep_ms = _cuda_ms(factor, 20), _cuda_ms(sweep, 20)
+            torch.cuda.synchronize()
+            apart = bool(torch.equal(q2, qp) and torch.equal(o2, o)
+                         and torch.equal(w2, w) and torch.equal(r22, r2))
+            for kernel, outs, call in (
+                    ("panel_step", (qp, o, w, r2), lambda: panel_step(c, z)),
+                    ("panel_coeff", (cw, cr2),
+                     lambda: panel_coeff(c, z, r2in)),
+                    ("panel_apply", (ao, ar2),
+                     lambda: panel_apply(qp, w, z, emit_norms=True))):
+                row = {"what": "sweep", "kernel": kernel,
+                       "dtype": str(dtype).removeprefix("torch."), "l": L,
+                       "b": b, "n": N, "ms": _cuda_ms(call, 20),
+                       "outputs_sha256": [_digest(t) for t in outs]}
+                if kernel == "panel_step":
+                    row.update(factor_ms=factor_ms, sweep_ms=sweep_ms,
+                               apart_same_bits=apart)
+                out.append(row)
+            del c, z, qp, o, w, r2, r2in, cw, cr2, ao, ar2, q2, o2, w2, r22
+            torch.cuda.empty_cache()
+
+
+def fwht_work(dtype: torch.dtype, m: int, n: int, sweeps: int) -> tuple:
+    """(bytes of one read and one write of x, bytes the sweeps move)."""
+    item = torch.empty((), dtype=dtype, device="meta").element_size()
+    return 2.0 * m * n * item, 2.0 * m * n * item * sweeps
+
+
+def _fwht_rows(dev, out: list) -> None:
+    """``fwht`` at ``FWHT_SHAPES``; each shape draws from its own seed."""
+    from ..kernels.srht import fwht
+    from ..kernels.srht.kernel import LAUNCHES
+    for i, (dtype, m, n) in enumerate(FWHT_SHAPES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(800 + i)
+        x = randn(gen, (m, n), dtype, dev)
+        before = LAUNCHES.count
+        y = fwht(x)
+        sweeps = LAUNCHES.count - before
+        ms = _cuda_ms(lambda: fwht(x), 5)
+        one_pass, moved = fwht_work(dtype, m, n, sweeps)
+        bound = 1e3 * one_pass / HBM_BYTES_PER_S
+        out.append({"what": "fwht", "kernel": "fwht",
+                    "dtype": str(dtype).removeprefix("torch."), "m": m,
+                    "n": n, "launches": sweeps, "ms": ms,
+                    "gbs": moved / ms / 1e6, "bound_ms": bound,
+                    "bound_share": bound / ms, "y_sha256": _digest(y)})
+        del x, y
         torch.cuda.empty_cache()
+
+
+def _rid_rows(dev, out: list) -> None:
+    """The main row's gaussian ``rid`` (13 ``panel_step`` panels): warm
+    host seconds and digests of the pivots and P."""
+    from ..core import rid
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000)
+    f64 = torch.float64
+    A = randn(gen, (M, K), f64, dev) @ randn(gen, (K, N), f64, dev)
+    dec = rid(0, A, K, sketch_kind="gaussian")
+    out.append({"what": "rid", "kernel": "rid", "dtype": "float64", "m": M,
+                "n": N, "k": K, "warm_median_s": time_fn(
+                    lambda: rid(0, A, K, sketch_kind="gaussian")),
+                "j_sha256": _digest(dec.J), "p_sha256": _digest(dec.P)})
+    del A, dec
+    torch.cuda.empty_cache()
 
 
 def _apply_rows(dev, out: list) -> None:
@@ -553,15 +642,16 @@ def _flash_rows(dev, out: list) -> None:
 
 
 # Row kinds whose digests --against holds to an earlier run's.
-PARITY_KINDS = ("gram", "sweep", "apply")
+PARITY_KINDS = ("gram", "sweep", "apply", "fwht", "rid")
+_PARITY_KEY = ("what", "kernel", "dtype", "m", "l", "b", "n")
 
 
 def parity(rows: list, earlier: list) -> list[dict]:
-    """One ``parity`` row per ``gram``, ``sweep`` or ``apply`` row of ``rows``:
-    whether the row of ``earlier`` with the same (kind, kernel, dtype, l,
-    b, n) has the same digests (every ``*sha256`` field)."""
+    """One ``parity`` row per ``PARITY_KINDS`` row of ``rows``: whether the
+    row of ``earlier`` with the same (kind, kernel, dtype, m, l, b, n) has
+    the same digests (every ``*sha256`` field)."""
     def key(r):
-        return (r["what"], r["kernel"], r["dtype"], r["l"], r["b"], r["n"])
+        return tuple(r.get(f) for f in _PARITY_KEY)
 
     def digests(r):
         return {f: r[f] for f in r if f.endswith("sha256")}
@@ -571,9 +661,9 @@ def parity(rows: list, earlier: list) -> list[dict]:
         if r.get("what") not in PARITY_KINDS:
             continue
         o = before.get(key(r))
-        out.append({"what": "parity", "kernel": r["kernel"],
-                    "dtype": r["dtype"], "l": r["l"], "b": r["b"],
-                    "n": r["n"], "bit_equal": o is not None
+        out.append({"what": "parity", **{f: r[f] for f in _PARITY_KEY[1:]
+                                         if f in r},
+                    "bit_equal": o is not None
                     and bool(digests(r)) and digests(o) == digests(r)})
     return out
 
@@ -617,6 +707,10 @@ def run(device="cuda", parts=PARTS, emit=None) -> list[dict]:
         _tsolve_rows(dev, out)
     if "flash" in parts:
         _flash_rows(dev, out)
+    if "fwht" in parts:
+        _fwht_rows(dev, out)
+    if "rid" in parts:
+        _rid_rows(dev, out)
     out.append({"what": "device", "name": torch.cuda.get_device_name(dev)})
     return list(out)
 
@@ -641,7 +735,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", nargs="*", default=list(PARTS), choices=PARTS)
     ap.add_argument("--against", default=None,
                     help="an earlier run's --json file: exit 1 unless every "
-                         "gram, sweep and apply row has its digests")
+                         "gram, sweep, apply, fwht and rid row has its "
+                         "digests")
     args = ap.parse_args(argv)
     rows = run("cuda", tuple(args.parts),
                emit=lambda row: print(json.dumps(row), flush=True))

@@ -30,20 +30,32 @@ printed and recorded (``--json PATH``) before the gate.
 
     python -m repro_torch.benchmarks.bench_error [--full] [--device cuda|cpu]
         [--sketch srft|srht|gaussian] [--qr-impl cgs2|blocked]
-        [--qr-panel auto|N] [--grid] [--json PATH]
+        [--qr-panel auto|N] [--grid] [--attribute-main N] [--json PATH]
+
+``--attribute-main N`` draws the main row's matrix (f64, k=400, m=2^16,
+n=2^14) for seeds 0..N-1 and runs each one's gaussian sketch through the
+CGS2 oracle and the blocked engine at panels 8, 16 and 32: which engine an
+eq. (3) reading above 1 follows (data, not gated).  ``--witness`` runs
+the exact-rank draws of ``WITNESS_CASES``, made on the CPU and moved to
+``--device``, through the same engines, with the exact 2-norm of the
+error: the rows the tests hold to the reference's engines on the same
+sketch (data, not gated).
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import hashlib
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..configs import PAPER_GRID, PAPER_TABLE5_ERRORS, SMALL_GRID
 from ..core import (error_bound, expected_sigma_kp1, rid, rid_distributed,
-                    shard_columns, spectral_error, spectral_norm_dense)
+                    rid_from_sketch, shard_columns, sketch, spectral_error,
+                    spectral_norm_dense)
 from ..core.distributed import QR_IMPLS as GRID_IMPLS
 from ..core.distributed import _all_gather_columns
 from ..core.rng import check_device
@@ -52,13 +64,22 @@ from .bench_total import lowrank_complex
 from .common import append_json_rows, cli_parser, emit, finish
 
 __all__ = ["GRID_DTYPES", "GRID_SHAPES", "GRID_IMPLS", "WIDTH_SWEEP",
-           "run", "grid_sweep", "one_rank_group", "main"]
+           "ATTRIBUTION_ENGINES", "WITNESS_CASES", "run", "grid_sweep",
+           "main_row_attribution", "witness_inputs", "eq3_witness",
+           "j_digest", "two_norm", "one_rank_group", "main"]
 
 GRID_DTYPES = {name: (getattr(torch, name), DTYPE_FLOORS[name])
                for name in ("float32", "float64", "complex64")}
 GRID_SHAPES = {10: (128, 120), 40: (256, 240), 96: (512, 480),
                100: (512, 480)}
 WIDTH_SWEEP = (8, 16, 32, 64)
+# The engines main_row_attribution runs on one sketch: (impl, panel).
+ATTRIBUTION_ENGINES = (("cgs2", None), ("blocked", 8), ("blocked", 16),
+                       ("blocked", 32))
+# Exact-rank draws (m, n, k, seed) on which the blocked engine reads above
+# the eq. (3) bound on the CPU at panel 32, 32, 16 and 8 in turn; one
+# shape, small enough for an exact 2-norm.
+WITNESS_CASES = tuple((512, 480, 96, seed) for seed in (0, 4, 16, 18))
 
 
 def run(grid, *, sketch_kind: str = "srft", qr_impl: str = "cgs2",
@@ -168,6 +189,85 @@ def grid_sweep(*, group, full: bool = False, json_path=None,
     return rows + wrows + summary
 
 
+def main_row_attribution(seeds, *, case=PAPER_GRID[2],
+                         device="cuda") -> list[dict]:
+    """The main row (``case``, f64; by default k=400, m=2^16, n=2^14) drawn
+    by seed as the smoke draws it, ``A = randn(m, k) @ randn(k, n)`` from a
+    generator seeded with the seed, its gaussian sketch, and that one
+    sketch through each of ``ATTRIBUTION_ENGINES``: the eq. (3) ratio of
+    each (``spectral_error``'s 50 power iterations against ``error_bound *
+    expected_sigma_kp1``, as the smoke's main phase measures it).  Data:
+    not gated."""
+    dev = check_device(device)
+    m, n, k = case.m, case.n, case.k
+    bound = error_bound(m, n, k) * expected_sigma_kp1(m, n)
+    rows = []
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        A = torch.randn((m, k), generator=gen, dtype=torch.float64,
+                        device=dev) @ torch.randn(
+            (k, n), generator=gen, dtype=torch.float64, device=dev)
+        Y = sketch(seed, A, 2 * k, kind="gaussian").Y
+        for impl, panel in ATTRIBUTION_ENGINES:
+            dec = rid_from_sketch(A, Y, k, qr_impl=impl,
+                                  qr_panel=panel or 32)
+            err = float(spectral_error(seed + 1, A, dec.B, dec.P))
+            rows.append({"bench": "eq3_attribution", "seed": seed, "m": m,
+                         "n": n, "k": k, "impl": impl, "panel": panel,
+                         "device": str(dev), "err_2norm": err,
+                         "eq3_bound": bound, "ratio": err / bound})
+            del dec
+        del A, Y
+    return rows
+
+
+def witness_inputs(m: int, n: int, k: int, seed: int) -> tuple:
+    """``A = randn(m, k) @ randn(k, n)`` (f64, from a CPU generator seeded
+    with ``seed``) and its gaussian sketch (``l = 2k``), both made on the
+    CPU so that every device is given the same bits."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn((m, k), generator=gen, dtype=torch.float64) @ torch.randn(
+        (k, n), generator=gen, dtype=torch.float64)
+    return A, sketch(seed, A, 2 * k, kind="gaussian").Y
+
+
+def eq3_witness(cases=WITNESS_CASES, *, device="cuda") -> list[dict]:
+    """Each case's ``witness_inputs``, moved to ``device``, through each of
+    ``ATTRIBUTION_ENGINES``: the exact 2-norm of ``A - BP`` (``two_norm``,
+    in f64 on the CPU) over ``error_bound * expected_sigma_kp1``, and a digest of the
+    pivots ``J``.  Data: not gated."""
+    dev = check_device(device)
+    rows = []
+    for m, n, k, seed in cases:
+        A, Y = witness_inputs(m, n, k, seed)
+        bound = error_bound(m, n, k) * expected_sigma_kp1(m, n)
+        Ad, Yd = A.to(dev), Y.to(dev)
+        for impl, panel in ATTRIBUTION_ENGINES:
+            dec = rid_from_sketch(Ad, Yd, k, qr_impl=impl,
+                                  qr_panel=panel or 32)
+            J, P = dec.J.cpu(), dec.P.cpu()
+            err = two_norm(A - A[:, J] @ P)
+            rows.append({"bench": "eq3_witness", "seed": seed, "m": m,
+                         "n": n, "k": k, "impl": impl, "panel": panel,
+                         "device": str(dev), "err_2norm": err,
+                         "eq3_bound": bound, "ratio": err / bound,
+                         "j_sha256": j_digest(J)})
+        del Ad, Yd
+    return rows
+
+
+def j_digest(J) -> str:
+    """SHA-256 of the pivots ``J`` (CPU) as little-endian int64."""
+    return hashlib.sha256(np.asarray(J, dtype="<i8").tobytes()).hexdigest()
+
+
+def two_norm(E: torch.Tensor) -> float:
+    """The exact 2-norm of ``E``: the root of the largest eigenvalue of
+    its Gram on the shorter side."""
+    G = E.mT @ E if E.shape[0] >= E.shape[1] else E @ E.mT
+    return float(torch.linalg.eigvalsh(G)[-1].clamp(min=0).sqrt())
+
+
 @contextlib.contextmanager
 def one_rank_group(device):
     """A one-rank ``torch.distributed`` group on a file store in a
@@ -201,7 +301,28 @@ def main(argv=None) -> None:
                     help="run the known-spectrum eq. (3) verification grid "
                          "and the panel-width calibration sweep instead of "
                          "the Table 5 rows")
+    ap.add_argument("--attribute-main", type=int, default=0, metavar="N",
+                    help="draw the main row's matrix for seeds 0..N-1 and "
+                         "run each sketch through CGS2 and the blocked "
+                         "engine at panels 8, 16 and 32 (eq. (3) ratios; "
+                         "not gated) instead of the Table 5 rows")
+    ap.add_argument("--witness", action="store_true",
+                    help="run WITNESS_CASES (made on the CPU) through CGS2 "
+                         "and the blocked engine at panels 8, 16 and 32 "
+                         "(exact eq. (3) ratios; not gated) instead of the "
+                         "Table 5 rows")
     args = ap.parse_args(argv)
+    if args.witness:
+        finish(eq3_witness(device=args.device),
+               f"eq. (3) on the witness draws by engine ({args.device})",
+               args.json)
+        return
+    if args.attribute_main:
+        finish(main_row_attribution(range(args.attribute_main),
+                                    device=args.device),
+               f"eq. (3) on the main row by engine ({args.device})",
+               args.json)
+        return
     if args.grid:
         with one_rank_group(args.device) as group:
             grid_sweep(group=group, full=args.full, json_path=args.json,

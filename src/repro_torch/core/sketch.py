@@ -5,9 +5,9 @@
                   per row, a DFT down every column (``torch.fft``), ``l``
                   rows drawn uniformly with replacement, scale ``1/sqrt(l)``.
 * ``srht``     -- the real analogue: random signs, a Walsh-Hadamard
-                  transform on rows zero-padded to a power of two (the
-                  plain ``kernels/srht`` versions, as the reference runs
-                  its jnp transform here).
+                  transform on rows zero-padded to a power of two, through
+                  ``kernels/srht`` (the ``fwht`` kernel on the card, the
+                  plain version on the CPU; bit-equal in the real dtypes).
 * ``gaussian`` -- ``Y = Omega A`` through the port's ``sketch_accum``.
 
 Each backend accepts its random operator injected (``phases=``/``rows=``,
@@ -30,8 +30,8 @@ import torch
 
 from ..kernels.common import cdiv
 from ..kernels.sketch_accum import ACCUM_BLOCK, sketch_accum
-from ..kernels.srht.ref import fwht_ref as fwht
-from ..kernels.srht.ref import next_pow2, srht_ref
+from ..kernels.srht import fwht, srht
+from ..kernels.srht.ref import next_pow2
 from .rng import as_generator, block_seed, check_device, seed_of
 from .types import SketchResult
 
@@ -82,7 +82,7 @@ def srht_sketch(gen_or_seed, A: torch.Tensor, l: int, *,
                               device=A.device) * 2 - 1
     if rows is None:
         rows = torch.randint(0, mp, (l,), generator=gen, device=A.device)
-    return srht_ref(signs, A, rows)
+    return srht(signs.to(A.device), A, rows)
 
 
 def _omega_block(seed: int, b: int, l: int, dtype: torch.dtype,

@@ -1,6 +1,7 @@
-// Pieces shared by the panel kernels (panel_step.cu, panel_gram.cu): the
-// tile constants of a column sweep, the one-block Gram product, and pass 1
-// of a sweep (coefficients X^H Z for one 32-column slab of Z).
+// Pieces shared by the panel kernels (panel_step.cu, panel_gram.cu,
+// panel_apply.cu, panel_deflate.cu): the tile constants of a column sweep
+// and pass 1 of the re-reading sweep (coefficients X^H Z for one 32-column
+// slab of Z).
 #pragma once
 
 #include "common.cuh"
@@ -13,21 +14,6 @@ constexpr int kSweepWarps = 8;
 constexpr int kSweepRows = 32;     // rows of l per shared-memory chunk
 constexpr int kSweepThreads = kSweepCols * kSweepWarps;
 constexpr int kPerWarp = kMaxPanel / kSweepWarps;  // panel columns per warp
-
-// G = src^H src for src (l x b) in global memory; G (b x b) in shared or
-// global memory.  Element (i, j) is one thread's sum over l in order.
-// src is not __restrict__: in round 2 of the factor it is Q1, written
-// earlier in the same kernel, so it must not be read through the
-// non-coherent load path.
-template <class T>
-__device__ void gram(const T* src, T* G, int64_t l, int b) {
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
-    const int i = e / b, j = e % b;
-    T s{};
-    for (int64_t r = 0; r < l; ++r) s = madd(conj_of(src[r * b + i]), src[r * b + j], s);
-    G[e] = s;
-  }
-}
 
 // Pass 1 of a sweep by a kSweepThreads block: acc[q] = sum_r conj(x[r, p])
 // z[r, c0 + lane] for p = warp + kSweepWarps * q < b, summed over l in

@@ -26,10 +26,14 @@
 //     other's latency (bench_dmma, f64, b = 32: 0.074 ms on 8 warps of
 //     8 x 2 tiles, 0.085 on 4 warps of 8 x 4; PERF.md);
 //   * each output element is one sum over l in order from zero, the same
-//     madd(conj(c[r, p]), x[r, j], s) as gram() and coeff_pass() of
-//     panel_common.cuh: G and V are the bits of the one-CTA Gram and the
-//     32-column slabs before, and V does not depend on the column tiling.
+//     madd(conj(c[r, p]), x[r, j], s) as the factor's Gram (panel_step.cu,
+//     gram_tiles) and coeff_pass() of panel_common.cuh: G and V are the
+//     bits of the one-CTA Gram and the 32-column slabs before, and V does
+//     not depend on the column tiling.
 //     l is not split; no atomics.
+//
+// With g null the Gram CTA returns at once: panel_step.cu's sweep takes V
+// alone, its W.
 //
 // Bound at the gram path's shape (f64, l=800, b=32, n=2^14): 109 MB
 // (C and Z in, G and V out) against 0.84 GFLOP, 0.0326 ms of HBM against
@@ -93,7 +97,9 @@ panel_gram_kernel(const T* __restrict__ c, const T* __restrict__ z,
   const int p0 = warp / kColGroups * kGramWarpRows, cw = warp % kColGroups * 32 * TJ;
 
   // The right operand of this CTA: C for the Gram tile, a slab of Z else.
+  // Without g (panel_step's W = Q_p^H Z), the Gram CTA has no work.
   const bool gram_cta = blockIdx.x == 0;
+  if (gram_cta && g == nullptr) return;
   const T* x = gram_cta ? c : z;
   const int64_t cols = gram_cta ? b : n;  // the operand's width and pitch
   const int64_t col0 = gram_cta ? 0 : static_cast<int64_t>(blockIdx.x - 1) * NC;

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..common import Example, KernelContract
-from .kernel import factor_launch, sweep_launch
+from .kernel import step_launches
 
 f32 = torch.float32
 
@@ -16,8 +16,7 @@ def _example() -> Example:
     l, b, n = 256, 32, 4096
     c = torch.empty((l, b), dtype=f32, device="meta")
     z = torch.empty((l, n), dtype=f32, device="meta")
-    return Example(panel_step, (c, z), {},
-                   (factor_launch(f32, l, b), sweep_launch("step", f32, l, b, n)))
+    return Example(panel_step, (c, z), {}, step_launches(f32, l, b, n))
 
 
 def _bad_call():

@@ -1,40 +1,47 @@
 """Wrappers of the Hopper panel kernels (``csrc/panel_step.cu``,
-``csrc/panel_apply.cu``), which replace three TPU kernels of
-``repro/kernels/panel_step/kernel.py``: ``panel_step_kernel``,
-``panel_coeff_kernel`` and ``panel_apply_kernel``.
+``csrc/panel_apply.cu``, and ``csrc/panel_gram.cu``'s pass), which replace
+three TPU kernels of ``repro/kernels/panel_step/kernel.py``:
+``panel_step_kernel``, ``panel_coeff_kernel`` and ``panel_apply_kernel``.
 
 The TPU kernels factor the panel on grid step 0 and keep ``Q_p`` in VMEM
 for every later slab.  Hopper blocks share nothing, so the factor is a
 launch of its own:
 
   (a) ``panel_factor`` -- one CTA: CholeskyQR2 of ``C`` with the clamped
-      Cholesky of ``ref.chol_clamped``, ``Q_p`` to global memory;
-  (b) ``panel_sweep``  -- one CTA per 32-column slab of ``Z``, in two
-      instantiations:
-        panel_step:  ``W = Q_p^H Z``, ``O = Z - Q_p W``, ``colnorms^2(O)``
-                     from the unrounded ``O``; ``W`` stored only when
-                     ``emit_w``;
-        panel_coeff: ``W`` and the downdate ``max(r2 - colnorms^2(W), 0)``,
-                     no ``O`` (stage A of the distributed panel).
+      Cholesky of ``ref.chol_clamped``, both rounds on the panel resident
+      in shared memory where it fits (``factor_launch``), ``Q_p`` to
+      global memory;
+  (b) ``panel_step``'s sweep -- one C entry, two launches: ``W = Q_p^H Z``
+      by panel_gram's pass over ``Z`` (no Gram tile), then ``O = Z - Q_p
+      W`` and ``colnorms^2(O)`` by panel_apply's kernel (``step_launches``;
+      ``W`` returned only when ``emit_w``);
+  (c) ``panel_coeff``'s sweep -- one CTA per 32-column slab of ``Z``:
+      ``W`` and the downdate ``max(r2 - colnorms^2(W), 0)``, no ``O``
+      (stage A of the distributed panel).
 
-``panel_step`` and ``panel_coeff`` are (a) then (b).  ``panel_apply``
+``panel_step`` is (a) then (b); ``panel_coeff`` is (a) then (c).  All of
+them sum in the parent's order, so they keep its bits.  ``panel_apply``
 (stage B: ``O = Z - Q_p W`` with ``W`` given, and ``colnorms^2(O)`` with
 ``emit_norms``) is one launch of a kernel of its own (``apply_launch``):
 slabs of 16, 32 or 64 16-byte vectors a row, chunks of ``Q_p`` and ``Z``
 through a ring of cp.async stages, the sweep's arithmetic and sum order,
 so its bits.  One call is one launch of the ported kernel in its launch
-count (a factor + sweep pair is counted once).
+count (the factor and the sweep are counted once).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from .._build import check_status, load_library
 from ..common import (SMEM_BUDGET_BYTES, Launch, LaunchCounter, cdiv,
-                      check_kernel_args, dtype_code, type_name)
+                      check_kernel_args, dtype_code, round_up, type_name)
+from ..panel_gram.kernel import panel_gram_launch
 
 __all__ = ["MAX_PANEL", "panel_step_kernel", "panel_coeff_kernel",
-           "panel_apply_kernel", "factor_launch", "sweep_launch",
+           "panel_apply_kernel", "factor_launch", "factor_resident",
+           "sweep_launch", "step_launches",
            "apply_geometry", "apply_threads", "apply_launch", "LAUNCHES",
            "COEFF_LAUNCHES", "APPLY_LAUNCHES", "APPLY_NORMS_LAUNCHES"]
 
@@ -70,34 +77,43 @@ def _sizes(dtype: torch.dtype) -> tuple[int, int]:
     return t.element_size(), _real_dtype(t).itemsize
 
 
+def _factor_smem(dtype: torch.dtype, l: int, b: int, resident: bool) -> int:
+    item, ritem = _sizes(dtype)
+    gp = b | 1                  # G's row pitch (odd: no bank conflicts)
+    # the panel's: even (aligned column pairs), odd in c128
+    xp = (b | 1) if item == 16 else round_up(b, 2) + 2
+    return item * ((l * xp if resident else 0) + b * gp + b) + ritem * b
+
+
+def factor_resident(dtype: torch.dtype, l: int, b: int) -> bool:
+    """Whether the factor keeps the panel in shared memory (row pitch
+    ``round_up(b, 2) + 2``, ``b | 1`` in c128) beside G, one column and the
+    real pivots."""
+    return _factor_smem(dtype, l, b, True) <= SMEM_BUDGET_BYTES
+
+
 def factor_launch(dtype: torch.dtype, l: int, b: int) -> Launch:
     """The factor's launch for a panel ``c`` (l, b): one CTA; G (b x b),
-    one column and the real pivots in shared memory."""
-    item, ritem = _sizes(dtype)
-    return Launch(f"panel_factor_kernel<{type_name(dtype)}>", (1, 1, 1),
-                  (FACTOR_THREADS, 1, 1), item * (b * b + b) + ritem * b,
-                  "repro_panel_factor",
+    one column and the real pivots in shared memory, and the panel itself
+    where it fits (``factor_resident``)."""
+    res = factor_resident(dtype, l, b)
+    return Launch(f"panel_factor_kernel<{type_name(dtype)},{str(res).lower()}>",
+                  (1, 1, 1), (FACTOR_THREADS, 1, 1),
+                  _factor_smem(dtype, l, b, res), "repro_panel_factor",
                   (dtype_code(dtype), None, None, l, b, None))
 
 
-# Sweep variants: template flag (emits O) and C entry point.
-_SWEEPS = {"step": ("true", "repro_panel_sweep"),
-           "coeff": ("false", "repro_panel_coeff_sweep")}
-
-
-def sweep_launch(variant: str, dtype: torch.dtype, l: int, b: int,
-                 n: int) -> Launch:
-    """A sweep's launch (``variant`` one of ``_SWEEPS``) over ``z`` (l, n)
-    with a panel of ``b`` columns: one CTA per 32-column slab, a 32-row
-    chunk of the panel and of the slab, ``W`` and the warps' norm partials
-    in shared memory."""
-    flags, entry = _SWEEPS[variant]
+def sweep_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
+    """``panel_coeff``'s sweep over ``z`` (l, n) with a panel of ``b``
+    columns: one CTA per 32-column slab, a 32-row chunk of the panel and of
+    the slab and the warps' norm partials in shared memory."""
     item, ritem = _sizes(dtype)
-    smem = (item * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS
-                    + b * SWEEP_COLS) + ritem * SWEEP_WARPS * SWEEP_COLS)
-    return Launch(f"panel_sweep_kernel<{type_name(dtype)},{flags}>",
+    smem = (item * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS)
+            + ritem * SWEEP_WARPS * SWEEP_COLS)
+    return Launch(f"panel_sweep_kernel<{type_name(dtype)}>",
                   (cdiv(n, SWEEP_COLS), 1, 1), (SWEEP_THREADS, 1, 1), smem,
-                  entry, (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
+                  "repro_panel_coeff_sweep",
+                  (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
 
 
 def _apply_smem(dtype: torch.dtype, cols: int, b: int) -> int:
@@ -143,6 +159,21 @@ def apply_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
                   (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
 
 
+def step_launches(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:
+    """The launches of one ``panel_step`` call: the factor, then (n > 0)
+    its sweep's two, both issued by ``repro_panel_sweep``: panel_gram's
+    kernel with ``c = Q_p`` (its Gram CTA idle) and panel_apply's."""
+    fac = factor_launch(dtype, l, b)
+    if not n:
+        return (fac,)
+    args = (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None)
+    return (fac,) + tuple(
+        dataclasses.replace(ln, entry="repro_panel_sweep", args=args,
+                            part=i, parts=2)
+        for i, ln in enumerate((panel_gram_launch(dtype, l, b, n),
+                                apply_launch(dtype, l, b, n))))
+
+
 def _check_panel(name: str, panel: torch.Tensor, z: torch.Tensor) -> None:
     l, b = panel.shape
     if l != z.shape[0]:
@@ -165,12 +196,13 @@ def panel_step_kernel(c: torch.Tensor, z: torch.Tensor, *,
     """Launch the factor and the sweep: ``c`` (l, b) with
     ``1 <= b <= MAX_PANEL``, ``z`` (l, n), contiguous CUDA tensors of one
     dtype.  Returns ``(Q_p, O, W or None, r2)``, ``r2`` real; does not
-    synchronize."""
+    synchronize.  ``W`` is formed either way (the sweep's second launch
+    reads it)."""
     dev = check_kernel_args("panel_step", c, z)
     _check_panel("panel_step", c, z)
     (l, b), n = c.shape, z.shape[1]
     o = torch.empty_like(z)
-    w = torch.empty((b, n), dtype=z.dtype, device=dev) if emit_w else None
+    w = torch.empty((b, n), dtype=z.dtype, device=dev)
     r2 = torch.empty((n,), dtype=_real_dtype(c), device=dev)
     lib = load_library()
     code = dtype_code(c.dtype)
@@ -179,12 +211,11 @@ def panel_step_kernel(c: torch.Tensor, z: torch.Tensor, *,
         qp = _factor(lib, code, c, stream)
         if n:
             rc = lib.repro_panel_sweep(code, qp.data_ptr(), z.data_ptr(),
-                                       o.data_ptr(),
-                                       w.data_ptr() if emit_w else None,
+                                       o.data_ptr(), w.data_ptr(),
                                        r2.data_ptr(), l, b, n, stream)
             check_status("panel_step (sweep)", rc)
     LAUNCHES.add()
-    return qp, o, w, r2
+    return qp, o, (w if emit_w else None), r2
 
 
 def panel_coeff_kernel(c: torch.Tensor, z: torch.Tensor, r2: torch.Tensor):

@@ -48,6 +48,9 @@ CONTRACT = KernelContract(
     pairs=(("fwht", "fwht_ref"), ("srht", "srht_ref")),
     example=_example,
     c_constants={"MAX_SLAB_LOG2": ("fwht.cu", "kMaxSlabLog2"),
+                 "REG_LOG2": ("fwht.cu", "kFwhtRegLog2"),
+                 "ROW_BYTES": ("fwht.cu", "kFwhtRowBytes"),
+                 "TILE_BYTES": ("fwht.cu", "kFwhtTileBytes"),
                  "THREADS": ("fwht.cu", "kThreads")},
     bad_call=_bad_call,
 )

@@ -4,9 +4,9 @@ length) and the SRHT (counterpart of ``repro.kernels.srht.ops``).
 The reference splits ``m > 8192`` (its VMEM budget) into two factors with
 transposes between its sweeps.  The port splits every ``m = 2^p`` into
 ``ceil(p / MAX_SLAB_LOG2)`` near-equal Kronecker factors, low factor
-first, and runs one kernel sweep per factor, addressing the later factors
-by their row stride instead of transposing; the last sweep applies the
-``1/sqrt(m)`` scale.  ``srht`` does the sign flip, zero padding, row
+first (two up to ``m = 2^18``), and runs one kernel sweep per factor,
+addressing the later factors by their row stride instead of transposing;
+the last sweep applies the ``1/sqrt(m)`` scale.  ``srht`` does the sign flip, zero padding, row
 gather and scale as tensor ops around the transform, as the reference
 does them in jnp around its Pallas call.
 
@@ -22,7 +22,7 @@ import torch
 
 from ..common import cdiv
 from .kernel import MAX_SLAB_LOG2, fwht_pass_kernel
-from .ref import fwht_ref, srht_ref
+from .ref import fwht_ref, next_pow2
 
 __all__ = ["fwht", "fwht_factors", "srht"]
 
@@ -57,8 +57,17 @@ def srht(signs: torch.Tensor, a: torch.Tensor,
          rows: torch.Tensor) -> torch.Tensor:
     """Subsampled randomized Hadamard transform of ``a`` (m, n): ``signs``
     (m,) the +-1 diagonal, ``rows`` (l,) sample indices into the padded
-    row space of length ``next_pow2(m)``.  Returns (l, n)."""
+    row space of length ``next_pow2(m)``.  Returns (l, n).  The sign flip,
+    padding, gather and scale are tensor ops around ``fwht``, in
+    ``srht_ref``'s order: the plain transform on the CPU, the kernel on
+    the card."""
     if signs.shape != (a.shape[0],):
         raise ValueError(f"signs shape {tuple(signs.shape)} must be "
                          f"({a.shape[0]},)")
-    return srht_ref(signs, a, rows, transform=fwht)
+    m = a.shape[0]
+    mp = next_pow2(m)
+    da = signs.to(a.device, a.dtype)[:, None] * a
+    if mp != m:
+        da = torch.nn.functional.pad(da, (0, 0, 0, mp - m))
+    h = fwht(da)
+    return h[rows.to(a.device, torch.int64)] * math.sqrt(mp / rows.shape[0])

@@ -36,16 +36,16 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
     return y * (1.0 / math.sqrt(m))
 
 
-def srht_ref(signs: torch.Tensor, a: torch.Tensor, rows: torch.Tensor, *,
-             transform=fwht_ref) -> torch.Tensor:
+def srht_ref(signs: torch.Tensor, a: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
     """Subsampled randomized Hadamard transform of ``a`` (m, n): the sign
     flip ``signs`` (m,) of +-1, zero rows up to the next power of two
-    ``mp``, ``transform`` (the FWHT) down every column, the rows ``rows``
-    (l,) of the padded row space, and the scale ``sqrt(mp / l)``."""
+    ``mp``, the FWHT down every column, the rows ``rows`` (l,) of the
+    padded row space, and the scale ``sqrt(mp / l)``."""
     m = a.shape[0]
     mp = next_pow2(m)
     da = signs.to(a.device, a.dtype)[:, None] * a
     if mp != m:
         da = torch.nn.functional.pad(da, (0, 0, 0, mp - m))
-    h = transform(da)
+    h = fwht_ref(da)
     return h[rows.to(a.device, torch.int64)] * math.sqrt(mp / rows.shape[0])

@@ -64,7 +64,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"arch {cfg.name!r} needs {', '.join(missing)}, which a later "
-            f"slice of the port brings (ROADMAP Queue A item 12); the port "
+            f"slice of the port brings (ROADMAP Queue A item 3); the port "
             f"runs dense attention-only stacks so far")
 
 

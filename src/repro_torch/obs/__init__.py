@@ -3,7 +3,7 @@ injectable clocks (``obs.clock``), nested spans with device-bracketed
 timing (``obs.trace``), counters/gauges/histograms (``obs.metrics``) and
 the JSONL and Chrome trace exporters (``obs.export``).  The reference's
 ``progress``, ``timeline`` and ``telemetry`` (the Prometheus server) come
-later (ROADMAP Queue A item 11)."""
+later (ROADMAP Queue A item 2)."""
 from .clock import MONOTONIC, Clock, FakeClock, MonotonicClock, now
 from .export import (ChromeTraceExporter, JsonlExporter, exporter_names,
                      get_exporter, register_exporter)

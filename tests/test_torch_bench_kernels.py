@@ -123,10 +123,11 @@ def test_fwht_factors_and_validation():
     assert fwht_factors(1) == [0] and fwht_factors(256) == [8]
     assert fwht_factors(2 ** 13) == [7, 6]
     assert fwht_factors(2 ** 16) == [8, 8]
-    assert fwht_factors(2 ** 18) == [6, 6, 6]
+    assert fwht_factors(2 ** 18) == [9, 9]
+    assert fwht_factors(2 ** 20) == [7, 7, 6]
     for m in (1, 2 ** 9, 2 ** 17, 2 ** 24):
         assert sum(fwht_factors(m)) == m.bit_length() - 1
-        assert max(fwht_factors(m)) <= 8
+        assert max(fwht_factors(m)) <= 9
     with pytest.raises(ValueError, match="power of two, got 100"):
         fwht(torch.ones(100, 3))
 
@@ -278,7 +279,8 @@ def test_bench_cli_prints_and_records_rows(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("parts", [("probe",), ("kernels", "shapes"),
                                    ("gram",), ("deflate",), ("split",),
-                                   ("apply",), ("tsolve",), ("flash",)])
+                                   ("apply",), ("tsolve",), ("flash",),
+                                   ("fwht",), ("rid",)])
 def test_bench_dmma_refuses_a_missing_card(parts):
     from repro_torch.benchmarks import bench_dmma
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -405,3 +407,18 @@ def test_bench_dmma_device_summary_sums_a_trace_by_kernel():
          "ms": pytest.approx(0.55), "launches": 6},
         {"name": "panel_gram_kernel<float, true, 1>", "ms": 0.5,
          "launches": 4}]
+
+
+def test_bench_dmma_parity_holds_fwht_rows():
+    """``fwht`` rows are held to the earlier run's digest at the same
+    (dtype, m, n); ``flash`` rows (times alone) are not held."""
+    from repro_torch.benchmarks.bench_dmma import parity
+    row = {"what": "fwht", "kernel": "fwht", "dtype": "float64",
+           "m": 2 ** 16, "n": 2 ** 14, "y_sha256": "y"}
+    flash = {"what": "flash", "kernel": "flash",
+             "case": "granite-3-2b prefill", "ms": 0.1}
+    got = parity([row, flash], [row])
+    assert [r["bit_equal"] for r in got] == [True]
+    assert got[0]["m"] == 2 ** 16 and "l" not in got[0]
+    assert not parity([row], [dict(row, y_sha256="z")])[0]["bit_equal"]
+    assert not parity([row], [dict(row, m=2 ** 18)])[0]["bit_equal"]

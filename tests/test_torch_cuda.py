@@ -175,6 +175,25 @@ def test_cuda_panel_step_matches_plain(dtype, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 17, 32, 33, 64])
+def test_cuda_panel_step_ragged_shapes(dtype, b):
+    """l not a multiple of the ring's 16-row chunk, n not of the slab; W in
+    registers up to b = 32, in shared memory past it; against ref.py, and
+    a repeated call gives the same bits."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    l, n = 777, 1001
+    c, z = _randn(gen, (l, b), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    got = panel_step(c, z)
+    for g, w in zip(got, panel_step_ref(c, z)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel(g, w) <= REL_TOL[dtype]
+    again = panel_step(c, z)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_panel_step_duplicate_columns_finite(dtype):
     dev = _device()
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -526,7 +545,7 @@ def test_cuda_sketch_matmul_and_panel_gram_instructions_without_spills():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [1, 2, 64, 256, 512, 8192, 2 ** 16, 2 ** 18])
 def test_cuda_fwht_matches_plain(dtype, m):
-    """One launch per Kronecker factor (three at m = 2^18); bit-equal to
+    """One launch per Kronecker factor (two at m = 2^18); bit-equal to
     the plain version in the real dtypes (exact butterflies in the same
     order, one scale)."""
     dev = _device()
@@ -540,6 +559,29 @@ def test_cuda_fwht_matches_plain(dtype, m):
         assert _rel(got, want) <= REL_TOL[dtype]
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_srht_sketch_launches_fwht(dtype):
+    """``core.srht_sketch`` on the card runs the fwht kernel (once a
+    factor) and gives the plain version's bits; ``core.fwht`` too."""
+    from repro_torch.core import fwht as core_fwht
+    from repro_torch.core import srht_sketch
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    m, n, l = 3000, 64, 48
+    a = _randn(gen, (m, n), dtype, dev)
+    signs = torch.randint(0, 2, (m,), generator=gen, device=dev) * 2 - 1
+    rows = torch.randint(0, 4096, (l,), generator=gen, device=dev)
+    before = FWHT_LAUNCHES.count
+    got = srht_sketch(0, a, l, signs=signs, rows=rows)
+    assert FWHT_LAUNCHES.count == before + len(fwht_factors(4096))
+    assert torch.equal(got, srht_ref(signs, a, rows))
+    x = _randn(gen, (1024, 33), dtype, dev)
+    before = FWHT_LAUNCHES.count
+    assert torch.equal(core_fwht(x), fwht_ref(x))
+    assert FWHT_LAUNCHES.count == before + len(fwht_factors(1024))
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ harness ``benchmarks/bench_error.py`` is not imported: it turns on
 pieces are taken from ``repro.data.synthetic`` and ``repro.core``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -190,3 +191,17 @@ def test_bench_error_refuses_a_missing_card():
         bench_error.run(SMALL_GRID[:1])
     with pytest.raises(RuntimeError, match="is_available"):
         bench_error.main(["--grid"])
+
+
+def test_main_row_attribution_runs_each_engine_on_one_sketch():
+    """A small row on the CPU: per seed one row per engine (CGS2, blocked
+    at panels 8, 16, 32), each with the same bound; exact-rank inputs sit
+    far below it."""
+    from repro_torch.configs.paper_rid import RIDCase
+    case = RIDCase(k=12, m=256, n=200)
+    rows = bench_error.main_row_attribution((0, 1), case=case, device="cpu")
+    assert [(r["seed"], r["impl"], r["panel"]) for r in rows] == [
+        (s, impl, p) for s in (0, 1)
+        for impl, p in bench_error.ATTRIBUTION_ENGINES]
+    assert len({r["eq3_bound"] for r in rows}) == 1
+    assert all(math.isfinite(r["ratio"]) and r["ratio"] < 1 for r in rows)
