@@ -40,6 +40,20 @@ in order, printing one JSON line per phase:
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
                  kernels and the paper's eq. (3) bound;
+  stream   -- the streamed ID, ``rid_streamed``, on one card: (a) the
+                 main row from an ``ArraySource`` over the host copy of
+                 phase main's ``A`` (chunks of 8192 rows through the
+                 pinned ring), bit-equal in B, P, J, Q and R to phase
+                 main's ``rid``, with the copies overlapped and not, its
+                 H2D GB/s and, traced, pass 1's idle share; (b) the
+                 paper's 64 GB row (PAPER_GRID[3]: k=400, m=2^18,
+                 n=2^14) from a ``SpectrumSource`` generated on the card,
+                 f64 and c128: wall, peak device memory within 1 % of the
+                 same call at m=2^16, eq. (3) in closed form for the
+                 blocked engine (reported) and for CGS2 on the same
+                 sketch (gated); (c) a job killed in pass 1 and in pass 2,
+                 resumed, bit-equal to an uninterrupted run; no ref.py
+                 function given a CUDA tensor;
   srht     -- ``rid(seed, A, 400, sketch_kind="srht")`` on a matrix of the
                  main row's shape: the fwht kernel once a factor; eq. (3)
                  for it reported (the blocked engine's reading, ROADMAP
@@ -200,6 +214,9 @@ SERVE_BATCH, SERVE_LEN, SERVE_LONG, SERVE_NEW = 4, 4608, (3000, 4000), 16
 CHUNK = 512
 CHUNK_TOL = {"rel_l2": 0.05, "max_abs_over_max": 0.1}
 SWA_LAYERS, SWA_PROMPT, SWA_STEPS = 4, 6144, 16
+# The stream phase's chunk: 8192 rows (1.07 GB of the main row in f64, 2.1
+# GB of the paper's 64 GB row in c128), a multiple of ACCUM_BLOCK.
+STREAM_CHUNK = 8192
 
 
 class PhaseError(RuntimeError):
@@ -325,11 +342,16 @@ def main() -> int:
                                                            apply_launch,
                                                            factor_launch,
                                                            factor_resident,
-                                                           step_launches,
-                                                           sweep_launch)
+                                                           coeff_launches,
+                                                           step_launches)
         from repro_torch.kernels.tsolve.kernel import (tsolve_geometry,
                                                        tsolve_launch)
         from repro_torch.core import qr_dist
+        from repro_torch.benchmarks.bench_chaos import (
+            fields_equal, killed_twice_then_resumed)
+        from repro_torch.data import spectrum_id_error
+        from repro_torch.obs import tracing
+        from repro_torch.stream import ArraySource, SpectrumSource, rid_streamed
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -705,16 +727,25 @@ def main() -> int:
     # through the ring), with NaN below R1's diagonal, which it must not
     # read.  The inputs come from a generator of their own, so that the
     # later phases' draws do not depend on these checks.
-    own = torch.Generator(device=dev)
-    own.manual_seed(SEED + 20)
+    def randn_with(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
 
-    def randn_own(shape, dtype):
-        if dtype.is_complex:
-            rdt = dtype.to_real()
-            return torch.complex(
-                torch.randn(shape, generator=own, dtype=rdt, device=dev),
-                torch.randn(shape, generator=own, dtype=rdt, device=dev))
-        return torch.randn(shape, generator=own, dtype=dtype, device=dev)
+        def draw(shape, dtype):
+            if dtype.is_complex:
+                rdt = dtype.to_real()
+                return torch.complex(
+                    torch.randn(shape, generator=gen, dtype=rdt, device=dev),
+                    torch.randn(shape, generator=gen, dtype=rdt, device=dev))
+            return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        return draw
+
+    randn_own, randn_coeff = randn_with(SEED + 20), randn_with(SEED + 22)
+
+    def same_bits(a, b) -> bool:
+        """Bit for bit, NaN included (a real tensor)."""
+        ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+        return bool(torch.equal(a.view(ints), b.view(ints)))
 
     for dtype in (torch.float32, torch.float64, torch.complex64,
                   torch.complex128):
@@ -780,6 +811,49 @@ def main() -> int:
                   for c in cases), f"panel_step {name}: ragged {cases}")
         check(not cases[-1]["factor_resident"],
               f"panel_step {name}: l=4000 kept its panel resident")
+        # panel_coeff's sweep (panel_gram's W pass with the downdate in its
+        # epilogue) held to the arithmetic of the sweep it replaced, bit
+        # for bit: W is one in-order sum over l (panel_gram's V of Q_p),
+        # and the downdate's colnorms^2(W) the 8 partials over the rows = g
+        # (mod 8) added in g order, which is panel_apply's norms of O = W
+        # (Q_p = 0).  At the main shape, b = 1, 17, 33, 64 at a ragged l
+        # and n, and l = 4000 (the factor re-reads its panel); r2 with
+        # picked columns' sentinels and NaN, which the max must keep.
+        cases = []
+        for l, b, n in ((2 * MAIN_K, PANEL, MAIN_N), (777, 1, 1001),
+                        (777, 17, 1001), (777, 33, 1001), (777, 64, 1001),
+                        (4000, 32, 333)):
+            c, z = randn_coeff((l, b), dtype), randn_coeff((l, n), dtype)
+            r2in = colnorms2(z)
+            r2in[::7] = -1.0
+            r2in[3::101] = float("nan")
+            qp, w, r2 = panel_coeff(c, z, r2in)
+            again = panel_coeff(c, z, r2in)
+            want = panel_coeff_ref(c, z, r2in)
+            v = panel_gram(qp, z)[1]
+            t = panel_apply(torch.zeros((b, 1), dtype=dtype, device=dev),
+                            torch.zeros((1, n), dtype=dtype, device=dev), w,
+                            emit_norms=True)[1]
+            d = r2in - t
+            r2_parent = torch.where(d < 0, torch.zeros_like(d), d)
+            torch.cuda.synchronize()
+            cases.append({
+                "l": l, "b": b, "n": n,
+                "rel_err": max(rel_err(u.nan_to_num(), v_.nan_to_num())
+                               for u, v_ in zip((qp, w, r2), want)),
+                "w_parent_bits": bool(torch.equal(w, v)),
+                "r2_parent_bits": same_bits(r2, r2_parent),
+                "nan_kept": bool(r2[3::101].isnan().all()),
+                "repeat_same_bits": bool(
+                    torch.equal(qp, again[0]) and torch.equal(w, again[1])
+                    and same_bits(r2, again[2]))})
+            del c, z, r2in, qp, w, r2, again, want, v, t, d, r2_parent
+        emit({"phase": "kernels", "kernel": "panel_coeff", "dtype": name,
+              "check": "the parent's bits", "cases": cases, "rel_tol": tol})
+        check(all(c["rel_err"] <= tol and c["w_parent_bits"]
+                  and c["r2_parent_bits"] and c["nan_kept"]
+                  and c["repeat_same_bits"] for c in cases),
+              f"panel_coeff {name}: {cases}")
         # fwht at ragged shapes: m = 1, 2, 64, a single 2^9 sweep with a
         # row of n = 1001 elements (one element a copy), two 2^9 sweeps.
         cases = []
@@ -1167,7 +1241,142 @@ def main() -> int:
             out = fn()
         return out, sorted(hits)
 
-    def run_rid(m, n, k, dtype, **kw):
+    def stream_call(source, k, **kw) -> tuple:
+        """One ``rid_streamed`` on the card under the obs tracer, its
+        launch counts from 0, its peak device memory over the call:
+        ``(result, row)``."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with tracing() as tr:
+            dec = rid_streamed(SEED, source, k, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = {}
+        for sp in tr.spans:
+            if sp.name in ("rid_streamed", "stream.pass1", "stream.qr_interp",
+                           "stream.pass2"):
+                spans[sp.name.removeprefix("stream.") + "_s"] = sp.dur
+        h2d = tr.metrics.counter("stream.h2d_bytes").value
+        return dec, {"wall_s": wall, **spans, "h2d_bytes": h2d,
+                     "h2d_gbs": h2d / spans["pass1_s"] / 1e9,
+                     "launches": read_counts(),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    def run_stream_phase(keep) -> dict:
+        """(a) the main row streamed from the host copy of phase main's
+        ``A``, bit for bit against phase main's ``rid``, with and without
+        the copies overlapped, and one traced call; (b) the paper's 64 GB
+        row (PAPER_GRID[3]) from a ``SpectrumSource`` on the card, f64 and
+        c128, its peak memory against the same call at m = 2^16, eq. (3)
+        in closed form for the blocked engine and CGS2 on the same
+        sketch; (c) a job killed in pass 1 and in pass 2 and resumed, bit
+        for bit against an uninterrupted run."""
+        out = {"chunk_rows": STREAM_CHUNK}
+        src = ArraySource(keep["A"], STREAM_CHUNK)
+        want = keep["dec"]
+        # The first call also pays for the pinned buffers (the caching host
+        # allocator keeps them for the calls after it).
+        dec, out["main_row_first_call"] = stream_call(src, MAIN_K)
+        del dec
+        for overlap in (True, False):
+            dec, row = stream_call(src, MAIN_K, overlap=overlap)
+            row["bit_equal_to_main"] = {
+                f: bool(torch.equal(getattr(dec, f).cpu(), want[f]))
+                for f in "BPJQR"}
+            out["main_row_overlap" if overlap else "main_row_serial"] = row
+            del dec
+        traced = profiled(lambda: stream_call(src, MAIN_K))
+        kern = {"sketch_accum": 0.0, "Memcpy HtoD": 0.0}
+        for r in traced["top_kernels"]:
+            for key in kern:
+                if key in r["name"]:
+                    kern[key] += r["ms"]
+        pass1_ms = 1e3 * out["main_row_overlap"]["pass1_s"]
+        out["main_row_traced"] = {
+            **traced, "sketch_accum_ms": kern["sketch_accum"],
+            "h2d_copy_ms": kern["Memcpy HtoD"],
+            "pass1_compute_idle_share": 1 - kern["sketch_accum"] / pass1_ms,
+            "pass1_copy_busy_share": kern["Memcpy HtoD"] / pass1_ms}
+        del src
+        torch.cuda.empty_cache()
+
+        big = PAPER_GRID[3]
+        for dtype in (torch.float64, torch.complex128):
+            rows = {}
+            for m in (big.m, MAIN_M):
+                spec = SpectrumSource(SEED + 40, m, big.n, "fast_decay", big.k,
+                                      chunk_rows=STREAM_CHUNK, dtype=dtype,
+                                      floor=1e-12, device=dev)
+                dec, row = stream_call(spec, big.k)
+                bound = error_bound(m, big.n, big.k) * float(
+                    spec.sigmas[big.k])
+                row["error_over_bound"] = spectrum_id_error(
+                    spec.factors, dec.J, dec.P) / bound
+                row["finite"] = bool(torch.isfinite(dec.P).all()
+                                     and torch.isfinite(dec.B).all())
+                row["J_distinct"] = int(torch.unique(dec.J).numel()) == big.k
+                if m == big.m:
+                    row["input_bytes"] = m * big.n * dec.B.element_size()
+                    cg, cg_row = stream_call(spec, big.k, qr_impl="cgs2")
+                    row["cgs2_same_sketch"] = {
+                        "wall_s": cg_row["wall_s"],
+                        "error_over_bound": spectrum_id_error(
+                            spec.factors, cg.J, cg.P) / bound}
+                    del cg
+                rows[f"m={m}"] = row
+                del dec, spec
+                torch.cuda.empty_cache()
+            out[f"paper_row_{dname(dtype)}"] = rows
+
+        gen_k = torch.Generator()
+        gen_k.manual_seed(SEED + 41)
+        A_small = torch.randn((4096, 1024), generator=gen_k,
+                              dtype=torch.float64)
+        clean = rid_streamed(1, ArraySource(A_small, 512), 32)
+        killed1, killed2, resumed = killed_twice_then_resumed(
+            A_small, 512, 32, dev)
+        out["kill_resume"] = {"m": 4096, "n": 1024, "k": 32,
+                              "chunk_rows": 512, "pass1_kill_fired": killed1,
+                              "pass2_kill_fired": killed2,
+                              "bit_equal": fields_equal(clean, resumed)}
+        return out
+
+    def check_stream(res: dict) -> None:
+        n_main = math.ceil(MAIN_M / STREAM_CHUNK)
+        n_panels = math.ceil(MAIN_K / PANEL)
+        for key in ("main_row_overlap", "main_row_serial"):
+            row = res[key]
+            check(all(row["bit_equal_to_main"].values()),
+                  f"stream {key}: not bit-equal to phase main's rid: "
+                  f"{row['bit_equal_to_main']}")
+            check(row["launches"]["sketch_accum"] == n_main
+                  and row["launches"]["panel_step"] == n_panels,
+                  f"stream {key}: launches {row['launches']}")
+        big = PAPER_GRID[3]
+        for dtype in ("float64", "complex128"):
+            rows = res[f"paper_row_{dtype}"]
+            full, small = rows[f"m={big.m}"], rows[f"m={MAIN_M}"]
+            check(full["launches"]["sketch_accum"]
+                  == math.ceil(big.m / STREAM_CHUNK),
+                  f"stream {dtype}: launches {full['launches']}")
+            check(full["finite"] and full["J_distinct"],
+                  f"stream {dtype}: J or P malformed")
+            flat = abs(full["max_memory_allocated"]
+                       / small["max_memory_allocated"] - 1)
+            check(flat <= 0.01, f"stream {dtype}: peak memory "
+                  f"{full['max_memory_allocated']} at m={big.m} against "
+                  f"{small['max_memory_allocated']} at m={MAIN_M}")
+            check(full["cgs2_same_sketch"]["error_over_bound"] <= 1,
+                  f"stream {dtype}: eq.(3) violated by CGS2")
+        kr = res["kill_resume"]
+        check(kr["pass1_kill_fired"] and kr["pass2_kill_fired"]
+              and kr["bit_equal"], f"stream: kill and resume {kr}")
+
+    def run_rid(m, n, k, dtype, keep=None, **kw):
+        """One ``rid`` on a fresh low-rank ``A``; with ``keep`` (a dict),
+        host copies of ``A`` and of the result's fields go there."""
         A = lowrank(m, n, k, dtype)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1181,12 +1390,17 @@ def main() -> int:
         out = {"m": m, "n": n, "k": k, "l": 2 * k, "dtype": dname(dtype),
                "launches": counts, "wall_s": wall,
                "max_memory_allocated": peak, **eq3_report(A, dec, k)}
+        if keep is not None:
+            keep["A"] = A.cpu()
+            keep["dec"] = {f: getattr(dec, f).cpu() for f in "BPJQR"}
         del A, dec
         torch.cuda.empty_cache()
         return out
 
+    main_keep = {}
     res, ref_hits = ref_calls_on_card(lambda: run_rid(
-        MAIN_M, MAIN_N, MAIN_K, torch.float64, sketch_kind="gaussian"))
+        MAIN_M, MAIN_N, MAIN_K, torch.float64, keep=main_keep,
+        sketch_kind="gaussian"))
     emit({"phase": "main", "call": "rid(seed, A, 400, sketch_kind='gaussian')",
           **res, "ref_py_given_cuda_tensors": ref_hits})
     check(not ref_hits, f"main: CUDA tensors reached {ref_hits}")
@@ -1199,6 +1413,14 @@ def main() -> int:
           f"times, expected {n_panels}")
     check_id(res, "main")
     main_launches = res["launches"]
+
+    # ------------------- stream: the streamed ID (rid_streamed) on one card
+    res, ref_hits = ref_calls_on_card(
+        lambda: run_stream_phase(main_keep))
+    del main_keep
+    emit({"phase": "stream", **res, "ref_py_given_cuda_tensors": ref_hits})
+    check(not ref_hits, f"stream: CUDA tensors reached {ref_hits}")
+    check_stream(res)
 
     # ------------------- srht: the main row through the fwht kernel
     # rid(sketch_kind="srht") on a matrix of the main row's shape from a
@@ -1619,8 +1841,9 @@ def main() -> int:
         ("tsolve", "tsolve"), ("flash", "flash"))}
     lib = _build.load_library()
     for name, launches in (
-            ("panel_coeff", (factor_launch(f32, 256, 32),
-                             sweep_launch(f32, 256, 32, 4096))),
+            ("panel_coeff", coeff_launches(f32, 256, 32, 4096)),
+            ("panel_coeff(f64, main)", coeff_launches(
+                torch.float64, 2 * MAIN_K, PANEL, MAIN_N)),
             ("panel_apply", (apply_launch(f32, 256, 32, 4096),)),
             ("panel_apply(f64, main)", (apply_launch(
                 torch.float64, 2 * MAIN_K, PANEL, MAIN_N),)),
@@ -1687,7 +1910,7 @@ def main() -> int:
     check(report.passes_run == ["dataflow", "kernels", "lint", "controls"]
           and tuple(report.subjects["controls"]) == tuple(sorted(CONTROLS)),
           f"analysis: passes {report.passes_run}")
-    check(len(geometry) == 30 and all(
+    check(len(geometry) == 31 and all(
         row["equal"] for rows in geometry.values() for row in rows),
         "analysis: a declared launch differs from the C side")
     check(all(row["c_smem"] + row["static_smem"] <= SMEM_BUDGET_BYTES
@@ -1752,9 +1975,10 @@ def main() -> int:
     def readings(fn, kernels: int, reps: int = 20) -> dict:
         """``fn`` (``kernels`` launches a call) timed three ways here:
         ``cuda_ms`` (one round of ``reps`` calls), ``bench_dmma``'s (the
-        least of two rounds), and under ``torch.profiler``, three calls and
+        least of two rounds), and under ``torch.profiler``, ten calls and
         then ``reps`` calls, of which the last ``reps * kernels`` device
-        events count (the trace's first two are lost): their time a
+        events count (the trace loses its first few events, two to four on
+        an H100): their time a
         call, and the device span a call (the first one's start to the last
         one's end), whose excess is gaps between kernels; ``cuda_ms`` once
         more after the trace; the SM clock, power draw and throttle reasons
@@ -1767,7 +1991,7 @@ def main() -> int:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps + 3):
+            for _ in range(reps + 10):
                 fn()
             torch.cuda.synchronize()
         spans = sorted((e.time_range.start, e.time_range.end)

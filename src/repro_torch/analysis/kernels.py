@@ -32,7 +32,9 @@ the declarations against the code:
                                   declared kernel uses more than 255
                                   registers or spills (``-Xptxas -v``)
   ``kernels.residency`` (info)    (on the card, ``measure_residency``) the
-                                  example's peak allocated bytes
+                                  example's live device bytes before and
+                                  after (``residency.live_device_bytes``)
+                                  and its peak allocated bytes
 
 The static part runs anywhere, without nvcc or a card: the declared
 launches are computed by the kernel modules' geometry functions.  With
@@ -56,6 +58,7 @@ from ..core.rng import check_device
 from ..kernels import _build
 from ..kernels.common import MAX_THREADS_PER_BLOCK, LaunchCounter
 from .report import Finding
+from .residency import live_device_bytes
 
 __all__ = ["kernel_packages", "check_package", "check_all_kernels",
            "c_constant", "record_library_calls", "hold_launch",
@@ -172,7 +175,7 @@ def _card_checks(pkg: str, base: str, contract, example, over: set,
         args = [_materialize(a, device, gen) for a in example.args]
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-        before = torch.cuda.memory_allocated(device)
+        before = live_device_bytes()
         n0 = _launch_count(kmod)
         try:
             with record_library_calls(libs) as calls:
@@ -204,8 +207,10 @@ def _card_checks(pkg: str, base: str, contract, example, over: set,
             peak = torch.cuda.max_memory_allocated(device)
             findings.append(Finding(
                 "kernels.residency", pkg, "measured",
-                f"example call: allocated bytes {before} -> peak {peak} "
-                f"(torch.cuda.max_memory_allocated)", severity="info"))
+                f"example call: live device bytes {before} -> "
+                f"{live_device_bytes()} (residency.live_device_bytes), peak "
+                f"{peak} (torch.cuda.max_memory_allocated)",
+                severity="info"))
     for i, ln in enumerate(launches):
         row = hold_launch(ln, libs[ln.library], contract.smem_budget)
         if row["status"] or row["c_smem"] is None:

@@ -73,13 +73,14 @@ _REGISTRY: dict = {}
 
 # Imported (in order) by load_entry_points to trigger the registration
 # hooks; keep in sync with the engine modules that call register().  The
-# streamed engine (the reference's ``stream.rid_stream``) is not ported
-# yet.
+# sharded streamed entry (the reference's ``rid_streamed.sharded_step``)
+# comes with the sharded ``rid_streamed``.
 ENGINE_MODULES = (
     "repro_torch.core.rid",
     "repro_torch.core.qr",
     "repro_torch.core.qr_dist",
     "repro_torch.core.distributed",
+    "repro_torch.stream.rid_stream",
 )
 
 

@@ -10,6 +10,13 @@ harness in the repository's ``benchmarks/``, which stays as it is):
   bench_error   -- Table 5: ||A - BP||_2 against the eq. (3) bound, and
                    the known-spectrum verification grid (--grid)
 
+and the streamed ID's three (``stream_sweep``, ``chaos_run``,
+``overlap_gate``; each with ``--device cuda|cpu`` and ``--json``):
+
+  bench_stream  -- peak device memory against m, the copies' overlap
+  bench_chaos   -- bit parity under seeded read faults and kill/resume
+  bench_overlap -- the share of host -> device traffic the pipeline hides
+
 Each has ``run(grid, ..., device)`` returning one row per grid case and a
 CLI, ``python -m repro_torch.benchmarks.bench_<x> [--full] [--device
 cuda|cpu]``: ``SMALL_GRID`` in f32/c64 by default, the paper's

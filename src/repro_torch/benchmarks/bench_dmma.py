@@ -3,8 +3,8 @@ the panel Gram, the panel deflation and application, the triangular solve
 and flash attention, on the card.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_dmma \
-        [--parts probe kernels shapes gram deflate split apply tsolve flash
-                 fwht rid] \
+        [--parts probe kernels shapes gram deflate coeff split apply tsolve
+                 flash fwht rid] \
         [--json PATH] [--against PATH]
 
 Prints one JSON line per measurement (and appends them to ``--json``):
@@ -35,6 +35,12 @@ Prints one JSON line per measurement (and appends them to ``--json``):
               b = 16 / 32 / 64 in the four dtypes, with digests of their
               outputs, and panel_step's factor and sweep launches timed
               apart through their C entry points (``sweep`` rows);
+  coeff    -- ``panel_coeff`` at l=800, n=2^14 and b = 1 / 17 / 32 / 33
+              / 64, at a ragged l and n (777, 17, 1001) and in the factor's
+              re-reading geometry (l=4000, b=32), in the four dtypes, with
+              NaN and negative entries in r2: the call's ms and its sweep's
+              alone (through its C entry), the sweep's byte bound and
+              share, and digests of Q_p, W and r2;
   split    -- ``bench_qr``'s fused-vs-split panel loop (l=256, n=4096,
               k=128, f32) at b = 16 / 32 / 64: each path's host seconds
               (``time_fn``, ``SPLIT_ROUNDS`` rounds, the paths alternating)
@@ -59,11 +65,13 @@ Prints one JSON line per measurement (and appends them to ``--json``):
               the bytes its sweeps move a second, the one-pass byte bound
               and its share, and a digest of the output;
   rid      -- the main row's ``rid(0, A, 400, sketch_kind="gaussian")``
-              (f64, m=2^16, n=2^14, A from seed 1000): the warm median
-              host seconds and digests of J and P.
+              (f64, m=2^16, n=2^14, A from seed 1000), then the same
+              matrix through ``rid_distributed(...,
+              qr_impl="panel_parallel")`` on a one-rank group: the warm
+              median host seconds and digests of J and P.
 
-``--against PATH`` compares the ``gram``, ``sweep``, ``apply``, ``fwht``
-and ``rid`` rows' digests with those of an earlier run's ``--json`` file
+``--against PATH`` compares the ``gram``, ``sweep``, ``coeff``, ``apply``,
+``fwht`` and ``rid`` rows' digests with those of an earlier run's ``--json`` file
 (same inputs: each dtype draws from its own seed) and exits 1 unless every
 such row is bit-equal.
 
@@ -86,11 +94,11 @@ import torch
 from .common import append_json_rows, randn, time_fn
 
 __all__ = ["PARTS", "run", "parity", "deflate_work", "apply_work",
-           "fwht_work",
+           "coeff_work", "fwht_work",
            "tsolve_work", "flash_work", "live_pairs", "device_summary"]
 
-PARTS = ("probe", "kernels", "shapes", "gram", "deflate", "split", "apply",
-         "tsolve", "flash", "fwht", "rid")
+PARTS = ("probe", "kernels", "shapes", "gram", "deflate", "coeff", "split",
+         "apply", "tsolve", "flash", "fwht", "rid")
 DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 L, M, N, K = 800, 2 ** 16, 2 ** 14, 400
 GRAM_BS = (16, 32, 64)
@@ -102,6 +110,10 @@ SPLIT_ROUNDS = 5
 # and the split sweep's.
 APPLY_SHAPES = ((L, 32, N), (L, 32, 4096), (256, 16, 4096), (256, 32, 4096),
                 (256, 64, 4096))
+# panel_coeff: (l, b, n) of the distributed main row at five panel widths,
+# a ragged shape and the factor's re-reading geometry.
+COEFF_SHAPES = ((L, 32, N), (L, 1, N), (L, 17, N), (L, 33, N), (L, 64, N),
+                (777, 17, 1001), (4000, 32, N))
 TSOLVE_KS = (100, K, 1000)
 SWEEP_BS = (16, 32, 64)
 # fwht: (dtype, m, n); c128 at a quarter of n, as the smoke runs it.
@@ -426,6 +438,64 @@ def _deflate_rows(dev, out: list) -> None:
             torch.cuda.empty_cache()
 
 
+def coeff_work(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:
+    """(flops, bytes) of ``panel_coeff``'s sweep: W = Q_p^H Z and the
+    downdate; Q_p and Z read once, r2 in, W and r2 out."""
+    t = torch.empty((), dtype=dtype, device="meta")
+    item = t.element_size()
+    ritem = t.real.element_size() if dtype.is_complex else item
+    flops = _real_flops(dtype, float(l) * b * n)
+    return flops, item * (l * b + l * n + b * n) + 2.0 * ritem * n
+
+
+def _coeff_rows(dev, out: list) -> None:
+    """``panel_coeff`` at ``COEFF_SHAPES`` in the four dtypes; each dtype
+    draws from its own seed, so two runs of this part (an older tree's
+    included) see the same data."""
+    from ..kernels import _build
+    from ..kernels.common import dtype_code
+    from ..kernels.panel_step import panel_coeff
+    from ..kernels.panel_step.ref import colnorms2
+    lib = _build.load_library()
+    for i, dtype in enumerate(DTYPES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(500 + i)
+        code = dtype_code(dtype)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for l, b, n in COEFF_SHAPES:
+            c = randn(gen, (l, b), dtype, dev)
+            z = randn(gen, (l, n), dtype, dev)
+            r2in = colnorms2(z)
+            r2in[::7] = -1.0
+            r2in[3::101] = float("nan")
+            qp, w, r2 = panel_coeff(c, z, r2in)
+            w2, r22 = torch.empty_like(w), torch.empty_like(r2)
+
+            def sweep():
+                _build.check_status("panel_coeff_sweep",
+                                    lib.repro_panel_coeff_sweep(
+                                        code, qp.data_ptr(), z.data_ptr(),
+                                        r2in.data_ptr(), w2.data_ptr(),
+                                        r22.data_ptr(), l, b, n, stream))
+            flops, nbytes = coeff_work(dtype, l, b, n)
+            sweep_ms = _cuda_ms(sweep, 20)
+            torch.cuda.synchronize()
+            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F64)
+            out.append({
+                "what": "coeff", "kernel": "panel_coeff",
+                "dtype": str(dtype).removeprefix("torch."), "l": l, "b": b,
+                "n": n, "ms": _cuda_ms(lambda: panel_coeff(c, z, r2in), 20),
+                "sweep_ms": sweep_ms, "sweep_bound_ms": bound,
+                "sweep_bound_share": bound / sweep_ms,
+                "sweep_gbs": nbytes / sweep_ms / 1e6,
+                "apart_same_bits": bool(torch.equal(w2, w) and torch.equal(
+                    r22.nan_to_num(-2.0), r2.nan_to_num(-2.0))),
+                "qp_sha256": _digest(qp), "w_sha256": _digest(w),
+                "r2_sha256": _digest(r2)})
+            del c, z, r2in, qp, w, r2, w2, r22
+        torch.cuda.empty_cache()
+
+
 def fwht_work(dtype: torch.dtype, m: int, n: int, sweeps: int) -> tuple:
     """(bytes of one read and one write of x, bytes the sweeps move)."""
     item = torch.empty((), dtype=dtype, device="meta").element_size()
@@ -468,6 +538,19 @@ def _rid_rows(dev, out: list) -> None:
                 "n": N, "k": K, "warm_median_s": time_fn(
                     lambda: rid(0, A, K, sketch_kind="gaussian")),
                 "j_sha256": _digest(dec.J), "p_sha256": _digest(dec.P)})
+    # The same matrix through the distributed panel (13 panel_coeff and
+    # panel_apply launches) on a one-rank group.
+    from ..core import rid_distributed
+    from .bench_error import one_rank_group
+    with one_rank_group(dev) as g:
+        def dist_call():
+            return rid_distributed(0, A, K, group=g, sketch_kind="gaussian",
+                                   qr_impl="panel_parallel")
+        dec = dist_call()
+        out.append({"what": "rid", "kernel": "rid_distributed",
+                    "dtype": "float64", "m": M, "n": N, "k": K,
+                    "warm_median_s": time_fn(dist_call),
+                    "j_sha256": _digest(dec.J), "p_sha256": _digest(dec.P)})
     del A, dec
     torch.cuda.empty_cache()
 
@@ -642,7 +725,7 @@ def _flash_rows(dev, out: list) -> None:
 
 
 # Row kinds whose digests --against holds to an earlier run's.
-PARITY_KINDS = ("gram", "sweep", "apply", "fwht", "rid")
+PARITY_KINDS = ("gram", "sweep", "coeff", "apply", "fwht", "rid")
 _PARITY_KEY = ("what", "kernel", "dtype", "m", "l", "b", "n")
 
 
@@ -699,6 +782,8 @@ def run(device="cuda", parts=PARTS, emit=None) -> list[dict]:
         _gram_rows(dev, out)
     if "deflate" in parts:
         _deflate_rows(dev, out)
+    if "coeff" in parts:
+        _coeff_rows(dev, out)
     if "split" in parts:
         _split_rows(dev, out)
     if "apply" in parts:
@@ -735,8 +820,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", nargs="*", default=list(PARTS), choices=PARTS)
     ap.add_argument("--against", default=None,
                     help="an earlier run's --json file: exit 1 unless every "
-                         "gram, sweep, apply, fwht and rid row has its "
-                         "digests")
+                         "gram, sweep, coeff, apply, fwht and rid row has "
+                         "its digests")
     args = ap.parse_args(argv)
     rows = run("cuda", tuple(args.parts),
                emit=lambda row: print(json.dumps(row), flush=True))

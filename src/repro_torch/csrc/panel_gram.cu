@@ -27,13 +27,18 @@
 //     8 x 2 tiles, 0.085 on 4 warps of 8 x 4; PERF.md);
 //   * each output element is one sum over l in order from zero, the same
 //     madd(conj(c[r, p]), x[r, j], s) as the factor's Gram (panel_step.cu,
-//     gram_tiles) and coeff_pass() of panel_common.cuh: G and V are the
-//     bits of the one-CTA Gram and the 32-column slabs before, and V does
-//     not depend on the column tiling.
+//     gram_lower): G and V are the bits of the one-CTA Gram and the
+//     32-column slabs before, and V does not depend on the column tiling.
 //     l is not split; no atomics.
 //
-// With g null the Gram CTA returns at once: panel_step.cu's sweep takes V
-// alone, its W.
+// With g null the Gram CTA returns at once: panel_step.cu's sweeps take V
+// alone, their W.  With r2 given (panel_coeff's sweep), each slab CTA also
+// writes the downdated norms of its columns, r2 = max(r2_in -
+// colnorms^2(V), 0): after a barrier, a thread a column reads the CTA's V
+// back (from L2, where its stores just went; V is stored unrounded, as
+// it was summed) and sums 8 partials, partial g over the rows p = g + 8 q
+// in increasing q, added in g order -- the order of the sweep it
+// replaced (its warp g held the rows = g mod 8), so its bits.
 //
 // Bound at the gram path's shape (f64, l=800, b=32, n=2^14): 109 MB
 // (C and Z in, G and V out) against 0.84 GFLOP, 0.0326 ms of HBM against
@@ -84,7 +89,9 @@ __device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, int b
 template <class T, bool kVec16, int TJ>
 __global__ void __launch_bounds__(kGramWarps * 32)
 panel_gram_kernel(const T* __restrict__ c, const T* __restrict__ z,
-                  T* __restrict__ g, T* __restrict__ v, int64_t l, int b, int64_t n) {
+                  T* __restrict__ g, T* __restrict__ v,
+                  const real_t<T>* __restrict__ r2_in, real_t<T>* __restrict__ r2,
+                  int64_t l, int b, int64_t n) {
   constexpr int NC = gram_cols<T>();
   constexpr int W = kVec16 ? 16 / static_cast<int>(sizeof(T)) : 1;  // elements a copy
   constexpr int kCopy = W * static_cast<int>(sizeof(T));              // bytes a copy
@@ -177,6 +184,31 @@ panel_gram_kernel(const T* __restrict__ c, const T* __restrict__ z,
       if (col < cols) out[p * cols + col] = acc[i][j];
     }
   }
+  if (gram_cta || r2 == nullptr) return;
+
+  // The downdate, a thread a column of the slab, from V as just stored
+  // (the barrier makes the block's stores visible to it).
+  using R = real_t<T>;
+  __syncthreads();
+  for (int j = threadIdx.x; j < NC; j += blockDim.x) {
+    const int64_t col = col0 + j;
+    if (col >= n) break;
+    R t = R(0);
+    // Fixed trip counts, fully unrolled: a loop bounded by b left c128's
+    // narrowest tile (TJ = 1) with a spilled register.
+#pragma unroll
+    for (int gi = 0; gi < kGramWarpRows; ++gi) {
+      R part = R(0);
+#pragma unroll
+      for (int q = 0; q < kMaxPanel / kGramWarpRows; ++q) {
+        const int p = gi + kGramWarpRows * q;
+        if (p < b) part = abs2_add(out[p * n + col], part);
+      }
+      t = gi == 0 ? part : t + part;
+    }
+    t = r2_in[col] - t;
+    r2[col] = t < R(0) ? R(0) : t;  // max(., 0) that keeps a NaN
+  }
 }
 
 template <class T>
@@ -185,19 +217,21 @@ bool gram_aligned(const void* p, int64_t ld) {
 }
 
 template <class T, int TJ>
-cudaError_t launch_gram_tj(const T* c, const T* z, T* g, T* v, int64_t l, int b, int64_t n,
-                           dim3 grid, dim3 block, size_t smem, cudaStream_t stream) {
+cudaError_t launch_gram_tj(const T* c, const T* z, T* g, T* v, const real_t<T>* r2_in,
+                           real_t<T>* r2, int64_t l, int b, int64_t n, dim3 grid, dim3 block,
+                           size_t smem, cudaStream_t stream) {
   return gram_aligned<T>(c, b) && gram_aligned<T>(z, n)
-             ? launch(panel_gram_kernel<T, true, TJ>, grid, block, smem, stream, c, z, g, v, l,
-                      b, n)
-             : launch(panel_gram_kernel<T, false, TJ>, grid, block, smem, stream, c, z, g, v, l,
-                      b, n);
+             ? launch(panel_gram_kernel<T, true, TJ>, grid, block, smem, stream, c, z, g, v,
+                      r2_in, r2, l, b, n)
+             : launch(panel_gram_kernel<T, false, TJ>, grid, block, smem, stream, c, z, g, v,
+                      r2_in, r2, l, b, n);
 }
 
 // Returns the launch's status, a refused shared-memory request's included.
 template <class T>
-cudaError_t launch_gram(const void* c_, const void* z_, void* g_, void* v_, int64_t l,
-                        int b, int64_t n, cudaStream_t stream) {
+cudaError_t launch_gram(const void* c_, const void* z_, void* g_, void* v_,
+                        const void* r2_in_, void* r2_, int64_t l, int b, int64_t n,
+                        cudaStream_t stream) {
   constexpr int NC = gram_cols<T>();
   const int bp = (b + kGramWarpRows - 1) / kGramWarpRows * kGramWarpRows;
   const int gp = bp / kGramWarpRows;
@@ -211,11 +245,15 @@ cudaError_t launch_gram(const void* c_, const void* z_, void* g_, void* v_, int6
   const T* z = static_cast<const T*>(z_);
   T* g = static_cast<T*>(g_);
   T* v = static_cast<T*>(v_);
+  const real_t<T>* r2_in = static_cast<const real_t<T>*>(r2_in_);
+  real_t<T>* r2 = static_cast<real_t<T>*>(r2_);
   if constexpr (NC / 32 >= 4) {
-    if (tj == 4) return launch_gram_tj<T, 4>(c, z, g, v, l, b, n, grid, block, smem, stream);
+    if (tj == 4)
+      return launch_gram_tj<T, 4>(c, z, g, v, r2_in, r2, l, b, n, grid, block, smem, stream);
   }
-  if (tj == 2) return launch_gram_tj<T, 2>(c, z, g, v, l, b, n, grid, block, smem, stream);
-  return launch_gram_tj<T, 1>(c, z, g, v, l, b, n, grid, block, smem, stream);
+  if (tj == 2)
+    return launch_gram_tj<T, 2>(c, z, g, v, r2_in, r2, l, b, n, grid, block, smem, stream);
+  return launch_gram_tj<T, 1>(c, z, g, v, r2_in, r2, l, b, n, grid, block, smem, stream);
 }
 
 }  // namespace
@@ -226,5 +264,18 @@ extern "C" int repro_panel_gram(int dtype, const void* c, const void* z, void* g
   if (l < 0 || n < 0 || b < 1 || b > repro::kMaxPanel)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH(dtype, launch_gram, c, z, g, v, l, static_cast<int>(b), n, s);
+  REPRO_DISPATCH(dtype, launch_gram, c, z, g, v, nullptr, nullptr, l, static_cast<int>(b), n,
+                 s);
+}
+
+// panel_coeff's sweep (panel_step.cu): V = C^H Z with the downdated norms
+// r2 = max(r2_in - colnorms^2(V), 0), no Gram; one launch.
+extern "C" int repro_panel_gram_downdate(int dtype, const void* c, const void* z,
+                                         const void* r2_in, void* v, void* r2, int64_t l,
+                                         int64_t b, int64_t n, void* stream) {
+  if (l < 0 || n < 1 || b < 1 || b > repro::kMaxPanel || r2_in == nullptr || r2 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH(dtype, launch_gram, c, z, nullptr, v, r2_in, r2, l, static_cast<int>(b), n,
+                 s);
 }

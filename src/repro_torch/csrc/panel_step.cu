@@ -38,10 +38,14 @@
 //       twice the pair: beside a 205 KB slab only 16 KB of shared memory
 //       is left for Q_p, which each CTA streams from L2 in both passes, so
 //       every 32-row chunk waited out an L2 round trip (PERF.md).
-//   (c) panel_sweep_kernel<T>, panel_coeff's sweep: one CTA per 32-column
-//       slab of Z walks l in 32-row chunks to form W in registers, then
-//       the norms' downdate max(r2 - colnorms^2(W), 0) from the unrounded
-//       W.
+//   (c) panel_coeff's sweep: the same W pass of panel_gram.cu with the
+//       norms' downdate max(r2 - colnorms^2(W), 0), from the unrounded W,
+//       in its epilogue (each CTA reads its W slab back from L2): one
+//       launch, Z read once.  It replaced a kernel of one CTA per
+//       32-column slab that staged l in 32-row chunks with synchronous
+//       copies and two barriers a chunk (0.19 against 0.08 ms at the main
+//       shape; PERF.md).  A third launch reading W back for the downdate
+//       measured 0.002-0.003 ms slower than the epilogue.
 //   panel_step = (a) + (b); panel_coeff = (a) + (c).
 // Every sum runs in a fixed order (no atomics, no split reductions), so the
 // same inputs give the same bits, on every rank of a distributed run, and
@@ -54,10 +58,11 @@
 //   * O[r, c] = Z[r, c] - sum_p madd(Q[r, p], W[p, c], s), p = 0..b-1 in
 //     order from 0, the last b % E columns unpadded (a 0 x 0 term can turn
 //     an underflowed -0 into +0);
-//   * the norm of a column: 8 partials, partial g summing |O|^2 of the
-//     rows = g (mod 8) in increasing order, added in g order.
+//   * the norm of a column: 8 partials, partial g summing |O|^2 (|W|^2 in
+//     panel_coeff's downdate) of the rows = g (mod 8) in increasing order,
+//     added in g order.
 // panel_gram and panel_apply keep these sums (their files), so panel_step
-// keeps the bits of the one-CTA factor and two-pass sweep it replaced.
+// and panel_coeff keep the bits of the kernels they replaced.
 //
 // Dead pivots (as repro_torch/kernels/panel_step/ref.py): a live pivot
 // gives L[:, j] = G[:, j] / sqrt(diag), so L[j, j] = diag / sqrt(diag), as
@@ -356,57 +361,11 @@ panel_factor_kernel(const T* __restrict__ c, T* qp, int64_t l, int b) {
   }
 }
 
-// (c): panel_coeff's sweep, one CTA per kSweepCols columns of Z: W (to
-// w_out) and the downdate max(r2_in - colnorms^2(W), 0) from the
-// unrounded W (to r2).
-template <class T>
-__global__ void __launch_bounds__(kSweepThreads)
-panel_sweep_kernel(const T* __restrict__ qp, const T* __restrict__ z,
-                   const real_t<T>* __restrict__ r2_in, T* __restrict__ w_out,
-                   real_t<T>* __restrict__ r2, int64_t l, int b, int64_t n) {
-  using R = real_t<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // kSweepRows x b
-  T* zs = qs + kSweepRows * b;             // kSweepRows x kSweepCols
-  R* rs = reinterpret_cast<R*>(zs + kSweepRows * kSweepCols);  // kSweepWarps x kSweepCols
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kSweepCols;
-  const int64_t col = c0 + lane;
-  const bool live = col < n;
-
-  R racc = R(0);
-  T wacc[kPerWarp];
-  coeff_pass(qp, z, l, b, n, c0, qs, zs, wacc);
-#pragma unroll
-  for (int q = 0; q < kPerWarp; ++q) {
-    const int p = warp + kSweepWarps * q;
-    if (p < b) {
-      if (live) w_out[p * n + col] = wacc[q];
-      racc = abs2_add(wacc[q], racc);
-    }
-  }
-  rs[warp * kSweepCols + lane] = racc;
-  __syncthreads();
-  if (warp == 0 && live) {
-    R t = rs[lane];
-    for (int q = 1; q < kSweepWarps; ++q) t = t + rs[q * kSweepCols + lane];
-    t = r2_in[col] - t;
-    r2[col] = t < R(0) ? R(0) : t;  // max(., 0) that keeps a NaN
-  }
-}
-
 template <class T>
 size_t factor_smem(bool resident, int64_t l, int b) {
   return sizeof(T) * ((resident ? l * panel_pitch<T>(b) : 0) +
                       static_cast<size_t>(b) * factor_pitch(b) + b) +
          sizeof(real_t<T>) * b;
-}
-
-template <class T>
-size_t sweep_smem(int b) {
-  return sizeof(T) * (static_cast<size_t>(kSweepRows) * b + kSweepRows * kSweepCols) +
-         sizeof(real_t<T>) * kSweepWarps * kSweepCols;
 }
 
 // The launchers return the launch's status: that of a refused shared-memory
@@ -420,17 +379,6 @@ cudaError_t launch_factor(const void* c, void* qp, int64_t l, int b, cudaStream_
                   factor_smem<T>(true, l, b), stream, cc, q, l, b);
   return launch(panel_factor_kernel<T, false>, dim3(1), dim3(kFactorThreads),
                 factor_smem<T>(false, l, b), stream, cc, q, l, b);
-}
-
-template <class T>
-cudaError_t launch_coeff_sweep(const void* qp, const void* z, const void* r2_in, void* w,
-                               void* r2, int64_t l, int b, int64_t n, cudaStream_t stream) {
-  using R = real_t<T>;
-  const unsigned grid = static_cast<unsigned>((n + kSweepCols - 1) / kSweepCols);
-  return launch(panel_sweep_kernel<T>, dim3(grid), dim3(kSweepThreads), sweep_smem<T>(b),
-                stream, static_cast<const T*>(qp), static_cast<const T*>(z),
-                static_cast<const R*>(r2_in), static_cast<T*>(w), static_cast<R*>(r2), l, b,
-                n);
 }
 
 bool bad_sizes(int64_t l, int64_t b, int64_t n) {
@@ -464,12 +412,17 @@ extern "C" int repro_panel_sweep(int dtype, const void* qp, const void* z,
   return repro_panel_apply(dtype, qp, w, z, o, r2, l, b, n, stream);
 }
 
+// panel_coeff's sweep: W = Q_p^H Z and r2 = max(r2_in - colnorms^2(W), 0)
+// in one launch of panel_gram's pass (no Gram, the downdate in its
+// epilogue).
+extern "C" int repro_panel_gram_downdate(int dtype, const void* c, const void* z,
+                                         const void* r2_in, void* v, void* r2, int64_t l,
+                                         int64_t b, int64_t n, void* stream);
+
 extern "C" int repro_panel_coeff_sweep(int dtype, const void* qp, const void* z,
                                        const void* r2_in, void* w, void* r2,
                                        int64_t l, int64_t b, int64_t n,
                                        void* stream) {
   if (bad_sizes(l, b, n)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH(dtype, launch_coeff_sweep, qp, z, r2_in, w, r2, l, static_cast<int>(b),
-                 n, s);
+  return repro_panel_gram_downdate(dtype, qp, z, r2_in, w, r2, l, b, n, stream);
 }

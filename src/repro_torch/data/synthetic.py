@@ -19,17 +19,30 @@ engines:
 packages give the same singular values bit for bit.  ``spectrum_matrix``
 draws its orthonormal factors from a ``torch.Generator`` (Philox), so its
 bits differ from the reference's (threefry); its singular values do not.
+
+``spectrum_factors`` / ``spectrum_rows`` are the streaming analogue: a
+factorization ``A = D U S V^H`` whose rows are evaluated in closed form
+for any row range (``SpectrumFactors``), so a chunk source can scale
+``m`` past device and host memory with the exact singular values in
+hand.  Its random parts follow the port's own rules: the frequencies and
+``V``'s Gaussian are drawn from a CPU generator seeded with the int seed
+(so the matrix is a function of the seed, whatever the device), and the
+row diagonal ``D`` is a splitmix64 hash of ``(seed, global row index)``
+(``row_diagonal``), evaluated vectorised on the rows' device.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.rng import as_generator, check_device
+from ..core.rng import as_generator, block_seed, check_device, seed_of
 
-__all__ = ["SPECTRA", "DTYPE_FLOORS", "spectrum_sigmas", "spectrum_matrix"]
+__all__ = ["SPECTRA", "DTYPE_FLOORS", "spectrum_sigmas", "spectrum_matrix",
+           "SpectrumFactors", "spectrum_factors", "spectrum_rows",
+           "row_diagonal", "spectrum_id_error"]
 
 SPECTRA = ("fast_decay", "cliff", "noisy_tail")
 
@@ -92,3 +105,155 @@ def spectrum_matrix(gen_or_seed, m: int, n: int, spectrum: str, k: int, *,
     s = torch.as_tensor(sig, dtype=torch.float64, device=dev)
     A = (U * s[None, :].to(U.dtype)) @ V.mH
     return A.to(dtype), sig
+
+
+class SpectrumFactors(NamedTuple):
+    """Row-generable factorization ``A = D U S V^H`` with exact singular
+    values (``spectrum_rows`` evaluates any row range in closed form):
+
+      ``U`` -- ``r`` distinct orthonormal DCT-II (real) / DFT (complex)
+               basis columns at the frequencies ``freqs``: row ``i`` of
+               column ``j`` is a cosine / phasor at ``(i, freqs[j])``, so
+               a chunk of rows never needs the rest of the matrix;
+      ``D`` -- a unit-modulus row diagonal (signs / phases) hashed from
+               ``(seed, global row index)`` (``row_diagonal``), which
+               randomises the row space without touching the spectrum;
+      ``V`` -- dense orthonormal ``n x r`` (f64 / c128) on ``V.device``.
+    """
+
+    freqs: np.ndarray       # (r,) int64 host array of distinct frequencies
+    V: torch.Tensor         # (n, r) orthonormal right factor
+    sig: np.ndarray         # (r,) exact singular values, descending
+    seed: int               # seed of the row diagonal
+    m: int
+    dtype: torch.dtype
+
+
+def _distinct_ints(g: torch.Generator, r: int, lo: int, hi: int) -> np.ndarray:
+    """``r`` distinct integers in ``[lo, hi)`` with O(r) memory (a
+    permutation of ``[lo, hi)`` would be O(hi), the very ``m`` this
+    exists for): uniform f64 draws (exact integers below 2^53) from ``g``,
+    deduplicated, in rounds until ``r`` are distinct.  Host int64, sorted:
+    frequencies reach ``m``, past int32 at streaming scales."""
+    if hi - lo < r:
+        raise ValueError(f"need hi - lo >= r, got [{lo}, {hi}) for r={r}")
+    vals = np.empty(0, np.int64)
+    while vals.size < r:
+        u = torch.rand(2 * r, generator=g, dtype=torch.float64).numpy()
+        draw = lo + np.floor(u * (hi - lo)).astype(np.int64)
+        vals = np.unique(np.concatenate([vals, draw]))
+    return vals[:r]
+
+
+def spectrum_factors(gen_or_seed, m: int, n: int, spectrum: str, k: int, *,
+                     r: Optional[int] = None,
+                     dtype: torch.dtype = torch.float64, floor: float = 1e-6,
+                     device="cuda") -> SpectrumFactors:
+    """The row-generable known-spectrum factorization (``SpectrumFactors``)
+    of an ``m x n`` matrix of rank ``r`` (default ``min(2 k + 16, m - 1,
+    n)``: the real DCT basis has only ``m - 1`` nonzero frequencies).
+    ``gen_or_seed`` is an int seed, or a generator from which one is
+    drawn; ``V`` lives on ``device``."""
+    dev = check_device(device)
+    r = min(2 * k + 16, m - 1, n) if r is None else r
+    if r > min(m - 1, n):
+        raise ValueError(f"need r <= min(m - 1, n), got r={r}, m={m}, n={n}")
+    sig = spectrum_sigmas(spectrum, r, k, floor=floor)
+    seed = seed_of(gen_or_seed)
+    g = torch.Generator()
+    g.manual_seed(block_seed(seed, 0))
+    freqs = _distinct_ints(g, r, 0 if dtype.is_complex else 1, m)
+    V = torch.randn((n, r), generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        V = torch.complex(V, torch.randn((n, r), generator=g,
+                                         dtype=torch.float64))
+    V = torch.linalg.qr(V.to(dev)).Q
+    return SpectrumFactors(freqs=freqs, V=V, sig=sig, seed=seed, m=m,
+                           dtype=dtype)
+
+
+# splitmix64's multipliers as signed int64 (torch has no uint64 arithmetic
+# on every device): products wrap mod 2^64, and the right shifts are made
+# logical with a mask.
+_MASK64 = (1 << 64) - 1
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _signed(x: int) -> int:
+    x &= _MASK64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _row_hash(seed: int, i: torch.Tensor) -> torch.Tensor:
+    """``rng.block_seed(seed, i)`` for every entry of ``i`` (int64), as
+    int64 bits: the splitmix64 finalizer of ``seed * golden + i + 1``."""
+    z = i + _signed(seed * 0x9E3779B97F4A7C15 + 1)
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+def row_diagonal(seed: int, r0: int, r1: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """Entries ``[r0, r1)`` of the unit-modulus row diagonal: each a
+    function of ``(seed, global row index)`` alone, through
+    ``block_seed`` (splitmix64).  Real: ``+1`` or ``-1`` by the hash's top
+    bit; complex: ``exp(2 pi i u)`` with ``u`` the hash's top 53 bits over
+    2^53 (exact in f64).  f64 / c128."""
+    i = torch.arange(r0, r1, dtype=torch.int64, device=device)
+    h = _row_hash(seed, i)
+    if dtype.is_complex:
+        u = _shr(h, 11).to(torch.float64) * 2.0 ** -53
+        return torch.polar(torch.ones_like(u), (2.0 * math.pi) * u)
+    return 1.0 - 2.0 * _shr(h, 63).to(torch.float64)
+
+
+def spectrum_rows(f: SpectrumFactors, r0: int, r1: int, *,
+                  diag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows ``[r0, r1)`` of the factored matrix, in ``f.dtype``, on
+    ``f.V``'s device.  Each row depends only on its global index, so any
+    chunking of ``[0, m)`` concatenates to the same matrix.  ``diag``
+    (``r1 - r0`` entries) replaces the hashed row diagonal (the parity
+    tests give it the reference's)."""
+    dev = f.V.device
+    if diag is None:
+        diag = row_diagonal(f.seed, r0, r1, f.dtype, dev)
+    d = diag.to(dev, torch.complex128 if f.dtype.is_complex
+                else torch.float64)
+    # i * f reaches ~m^2: form the products in f64 (exact below 2^53) and
+    # reduce them modulo the basis period before the 2 pi scaling, so the
+    # trig arguments stay small and full-precision at any streaming m.
+    fi = torch.arange(r0, r1, dtype=torch.float64, device=dev)
+    ff = torch.as_tensor(np.asarray(f.freqs, np.float64), device=dev)
+    if f.dtype.is_complex:
+        frac = torch.remainder(fi[:, None] * ff[None, :], float(f.m)) / f.m
+        U = d[:, None] * torch.polar(torch.ones_like(frac),
+                                     (2.0 * math.pi) * frac) / math.sqrt(f.m)
+    else:
+        # cos(pi (i + 1/2) f / m) has period 4m in (2i + 1) f
+        t = torch.remainder((2.0 * fi + 1.0)[:, None] * ff[None, :],
+                            4.0 * f.m)
+        U = d[:, None] * torch.cos((math.pi / (2.0 * f.m)) * t) \
+            * math.sqrt(2.0 / f.m)
+    s = torch.as_tensor(f.sig, dtype=torch.float64, device=dev)
+    rows = (U * s[None, :].to(U.dtype)) @ f.V.mH
+    return rows.to(f.dtype)
+
+
+def spectrum_id_error(f: SpectrumFactors, J: torch.Tensor,
+                      P: torch.Tensor) -> float:
+    """``||A - B P||_2`` of an ID ``B = A[:, J]`` of the factored matrix, in
+    closed form: ``A - B P = D U diag(sig) V^H (I - S_J P)`` with ``D U``
+    orthonormal, so it is the norm of the ``r x n`` matrix
+    ``M - M[:, J] P``, ``M = diag(sig) V^H`` (no row of ``A`` formed)."""
+    dev = f.V.device
+    M = (torch.as_tensor(f.sig, dtype=torch.float64, device=dev)[:, None]
+         .to(f.V.dtype) * f.V.mH)
+    E = M - M[:, J.to(dev)] @ P.to(dev, M.dtype)
+    # ||E||_2 = ||R||_2 for E^H = Q R: an r x r SVD in place of r x n.
+    return float(torch.linalg.svdvals(torch.linalg.qr(E.mH, mode="r").R)[0])

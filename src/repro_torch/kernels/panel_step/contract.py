@@ -36,9 +36,6 @@ CONTRACT = KernelContract(
            ("panel_apply", "panel_apply_ref")),
     example=_example,
     c_constants={"MAX_PANEL": ("panel_common.cuh", "kMaxPanel"),
-                 "SWEEP_COLS": ("panel_common.cuh", "kSweepCols"),
-                 "SWEEP_ROWS": ("panel_common.cuh", "kSweepRows"),
-                 "SWEEP_WARPS": ("panel_common.cuh", "kSweepWarps"),
                  "FACTOR_THREADS": ("panel_step.cu", "kFactorThreads"),
                  "APPLY_NORM_GROUPS": ("panel_apply.cu", "kApplyNormGroups"),
                  "APPLY_ROWS": ("panel_apply.cu", "kApplyRows"),

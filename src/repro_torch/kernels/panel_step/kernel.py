@@ -15,9 +15,10 @@ launch of its own:
       by panel_gram's pass over ``Z`` (no Gram tile), then ``O = Z - Q_p
       W`` and ``colnorms^2(O)`` by panel_apply's kernel (``step_launches``;
       ``W`` returned only when ``emit_w``);
-  (c) ``panel_coeff``'s sweep -- one CTA per 32-column slab of ``Z``:
-      ``W`` and the downdate ``max(r2 - colnorms^2(W), 0)``, no ``O``
-      (stage A of the distributed panel).
+  (c) ``panel_coeff``'s sweep -- one launch of panel_gram's pass over
+      ``Z`` (no Gram tile) that also writes the downdate ``max(r2 -
+      colnorms^2(W), 0)`` from each CTA's unrounded ``W`` tile, no ``O``
+      (stage A of the distributed panel; ``coeff_launches``).
 
 ``panel_step`` is (a) then (b); ``panel_coeff`` is (a) then (c).  All of
 them sum in the parent's order, so they keep its bits.  ``panel_apply``
@@ -41,18 +42,14 @@ from ..panel_gram.kernel import panel_gram_launch
 
 __all__ = ["MAX_PANEL", "panel_step_kernel", "panel_coeff_kernel",
            "panel_apply_kernel", "factor_launch", "factor_resident",
-           "sweep_launch", "step_launches",
+           "coeff_launches", "step_launches",
            "apply_geometry", "apply_threads", "apply_launch", "LAUNCHES",
            "COEFF_LAUNCHES", "APPLY_LAUNCHES", "APPLY_NORMS_LAUNCHES"]
 
 # Widest panel the kernels take (csrc/panel_common.cuh, kMaxPanel; the
 # kernel contract holds the two equal).
 MAX_PANEL = 64
-# The sweep's tile (csrc/panel_common.cuh): 32 columns of Z per CTA, one
-# per lane, 8 warps, l staged in 32-row chunks; the factor's CTA size
-# (csrc/panel_step.cu).
-SWEEP_COLS, SWEEP_ROWS, SWEEP_WARPS = 32, 32, 8
-SWEEP_THREADS = SWEEP_COLS * SWEEP_WARPS
+# The factor's CTA size (csrc/panel_step.cu).
 FACTOR_THREADS = 512
 # panel_apply (csrc/panel_apply.cu): the column norms in APPLY_NORM_GROUPS
 # partials (rows = g mod 8), 32-row chunks through a ring of APPLY_STAGES
@@ -103,19 +100,6 @@ def factor_launch(dtype: torch.dtype, l: int, b: int) -> Launch:
                   (dtype_code(dtype), None, None, l, b, None))
 
 
-def sweep_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
-    """``panel_coeff``'s sweep over ``z`` (l, n) with a panel of ``b``
-    columns: one CTA per 32-column slab, a 32-row chunk of the panel and of
-    the slab and the warps' norm partials in shared memory."""
-    item, ritem = _sizes(dtype)
-    smem = (item * (SWEEP_ROWS * b + SWEEP_ROWS * SWEEP_COLS)
-            + ritem * SWEEP_WARPS * SWEEP_COLS)
-    return Launch(f"panel_sweep_kernel<{type_name(dtype)}>",
-                  (cdiv(n, SWEEP_COLS), 1, 1), (SWEEP_THREADS, 1, 1), smem,
-                  "repro_panel_coeff_sweep",
-                  (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
-
-
 def _apply_smem(dtype: torch.dtype, cols: int, b: int) -> int:
     item, ritem = _sizes(dtype)
     vec = 16 // item
@@ -157,6 +141,18 @@ def apply_launch(dtype: torch.dtype, l: int, b: int, n: int) -> Launch:
                   (cdiv(n, cols), 1, 1), (apply_threads(dtype, cols), 1, 1),
                   _apply_smem(dtype, cols, b), "repro_panel_apply",
                   (dtype_code(dtype),) + (None,) * 5 + (l, b, n, None))
+
+
+def coeff_launches(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:
+    """The launches of one ``panel_coeff`` call: the factor, then (n > 0)
+    its sweep, panel_gram's kernel with ``c = Q_p`` (its Gram CTA idle) and
+    the downdate in its epilogue, issued by ``repro_panel_coeff_sweep``."""
+    fac = factor_launch(dtype, l, b)
+    if not n:
+        return (fac,)
+    return (fac, dataclasses.replace(
+        panel_gram_launch(dtype, l, b, n), entry="repro_panel_coeff_sweep",
+        args=(dtype_code(dtype),) + (None,) * 5 + (l, b, n, None)))
 
 
 def step_launches(dtype: torch.dtype, l: int, b: int, n: int) -> tuple:

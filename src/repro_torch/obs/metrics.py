@@ -15,8 +15,10 @@ Instruments:
   :class:`Histogram`  summary statistics (count/sum/min/max) of repeated
                       observations.
 
-The reference's device-residency sampler (``live_device_bytes``,
-``MeteredSource``) comes with the streaming slice.
+The device-residency sampler, ``live_device_bytes`` and
+``MeteredSource``, is the one measurement path of device residency: the
+streamed ID's ``device.live_bytes`` gauge, ``bench_stream`` and
+``analysis.residency`` read it.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Optional
 
 from .clock import Clock, MONOTONIC
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "live_device_bytes", "MeteredSource"]
 
 
 class Counter:
@@ -132,3 +135,64 @@ class MetricsRegistry:
     def snapshot(self) -> list[dict]:
         return [inst.snapshot()
                 for _, inst in sorted(self._instruments.items())]
+
+
+# ---------------------------------------------------------------------------
+# Device residency sampling
+# ---------------------------------------------------------------------------
+
+def live_device_bytes() -> int:
+    """Bytes of tensors live on the process's CUDA devices
+    (``torch.cuda.memory_allocated``, summed over the cards).  0 on a host
+    without a card: CPU tensors are host memory, not device residency."""
+    import torch
+    if not torch.cuda.is_available():
+        return 0
+    return sum(torch.cuda.memory_allocated(d)
+               for d in range(torch.cuda.device_count()))
+
+
+class MeteredSource:
+    """Wrap a chunk source; track the peak of ``live_device_bytes`` across
+    chunk fetches (the streamed ID's residency meter).  With a ``gauge``,
+    every sample is also recorded there, so a traced run exports the
+    residency track next to the chunk spans.
+
+    The optional ``sigmas`` / ``fingerprint`` / ``close`` surfaces
+    delegate to the wrapped source: metering changes neither the resume
+    identity nor the wrapped source's lifetime."""
+
+    def __init__(self, inner, *, gauge: Optional[Gauge] = None):
+        self._inner = inner
+        self._gauge = gauge
+        self.shape = inner.shape
+        self.dtype = inner.dtype
+        self.chunk_rows = inner.chunk_rows
+        self.peak_bytes = 0
+
+    @property
+    def sigmas(self):
+        return getattr(self._inner, "sigmas", None)
+
+    def fingerprint(self):
+        fp = getattr(self._inner, "fingerprint", None)
+        return fp() if callable(fp) else fp
+
+    def chunk(self, c: int):
+        live = live_device_bytes()
+        self.peak_bytes = max(self.peak_bytes, live)
+        if self._gauge is not None:
+            self._gauge.set(live)
+        return self._inner.chunk(c)
+
+    def close(self):
+        close = getattr(self._inner, "close", None)
+        if callable(close):
+            close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

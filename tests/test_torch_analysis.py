@@ -106,7 +106,8 @@ def test_recorder_logs_ops_in_program_order():
     assert run.recording.events[0].dtypes == (torch.float64,)
 
 
-@pytest.mark.parametrize("name,syncs", [("rid", 1), ("pivoted_qr.blocked", 3)])
+@pytest.mark.parametrize("name,syncs", [("rid", 1), ("pivoted_qr.blocked", 3),
+                                        ("rid_streamed.step", 3)])
 def test_single_device_entries_clean_within_sync_budget(name, syncs):
     """The blocked engine reads one scalar a panel by design
     (``_panel_ok``); the declared budget holds exactly that."""
@@ -125,7 +126,7 @@ def test_registry_names_and_duplicate_rejection():
     assert names == ["panel_parallel_qr_local.fused",
                      "panel_parallel_qr_local.gram", "pivoted_qr.blocked",
                      "rid", "rid_distributed.blocked",
-                     "rid_distributed.panel_parallel"]
+                     "rid_distributed.panel_parallel", "rid_streamed.step"]
     assert "control" in registry.get("panel_parallel_qr_local.gram").tags
     assert not registry.get("panel_parallel_qr_local.gram") \
         .overlap.expect_overlap
@@ -520,7 +521,7 @@ def test_dataflow_pass_on_a_one_rank_group(tmp_path):
     assert out["fixture.gather-blowup"] == [
         ["dataflow.replicated-collective", "all_gather-16x64"]]
     assert out["entries"] == {name: [] for name in out["entries"]}
-    assert len(out["entries"]) == 6
+    assert len(out["entries"]) == 7
     assert out["controls"] == []
     assert out["passes"] == ["dataflow", "kernels", "lint", "controls"]
     assert out["errors"] == []

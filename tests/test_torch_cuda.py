@@ -355,6 +355,41 @@ def test_cuda_panel_gram_matches_plain(dtype, b):
     assert v0.shape == (b, 0) and torch.equal(g0, got[0])
 
 
+def _bits(t):
+    """A real tensor's bits as integers (NaN compares equal to itself)."""
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,b,n", [(800, 32, 4096), (777, 1, 1001),
+                                   (777, 17, 1001), (777, 33, 1001),
+                                   (777, 64, 1001), (4000, 32, 333)])
+def test_cuda_panel_coeff_keeps_the_parent_arithmetic(dtype, l, b, n):
+    """panel_coeff's sweep (panel_gram's W pass, the downdate in its
+    epilogue) bit-equal to the arithmetic of the sweep it replaced: W one
+    in-order sum over l (panel_gram's V of Q_p), and colnorms^2(W) as 8
+    partials over the rows = g (mod 8) added in g order (panel_apply's
+    norms of O = W with Q_p = 0), subtracted from r2 and clamped at 0 with
+    NaN kept."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    c, z = _randn(gen, (l, b), dtype, dev), _randn(gen, (l, n), dtype, dev)
+    r2in = _norms2(z)
+    r2in[::7] = -1.0
+    r2in[3::101] = float("nan")
+    qp, w, r2 = panel_coeff(c, z, r2in)
+    assert torch.equal(w, panel_gram(qp, z)[1])
+    t = panel_apply(torch.zeros((b, 1), dtype=dtype, device=dev),
+                    torch.zeros((1, n), dtype=dtype, device=dev), w,
+                    emit_norms=True)[1]
+    d = r2in - t
+    assert torch.equal(_bits(r2), _bits(torch.where(d < 0, torch.zeros_like(d), d)))
+    assert bool(r2[3::101].isnan().all())
+    again = panel_coeff(c, z, r2in)
+    assert torch.equal(again[1], w) and torch.equal(_bits(again[2]), _bits(r2))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_panel_coeff_duplicate_columns_finite(dtype):
@@ -1173,3 +1208,66 @@ def test_cuda_contract_geometry_equals_the_c_side():
     assert sorted({f.rule for f in bad}) == ["kernels.smem-overflow"], bad
     (row,) = geometry_report("badkernel", base=BADKERNEL_BASE)
     assert row["equal"] and row["c_smem"] == 4096 * 4096 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("chunk_rows", [128, 384, 2048])
+def test_cuda_streamed_rid_equals_in_memory_rid(dtype, chunk_rows):
+    """rid_streamed from a host ArraySource (each chunk through the pinned
+    ring and the copy stream) gives the card's in-memory gaussian rid bit
+    for bit in all five fields, one sketch_accum launch a chunk."""
+    from repro_torch.stream import ArraySource, rid_streamed
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(30)
+    m, n, k = 2048, 384, 24
+    A = _randn(gen, (m, k), dtype, dev) @ _randn(gen, (k, n), dtype, dev)
+    want = rid(5, A, k, sketch_kind="gaussian")
+    before = ACCUM_LAUNCHES.count
+    got = rid_streamed(5, ArraySource(A.cpu(), chunk_rows), k)
+    assert ACCUM_LAUNCHES.count - before == -(-m // chunk_rows)
+    assert got.B.device.type == "cpu"
+    for f in "BPJQR":
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_cuda_pinned_ring_overlapped_equals_serialized(dtype):
+    """The two-buffer pinned ring on a copy stream (overlap=True) against
+    every copy and accumulation serialized on the compute stream, and a
+    SpectrumSource whose chunks are made on the card (no copy): the same
+    bits, run after run."""
+    from repro_torch.stream import ArraySource, SpectrumSource, rid_streamed
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    m, n, k = 4096, 512, 32
+    A = (_randn(gen, (m, k), dtype, dev) @ _randn(gen, (k, n), dtype, dev)).cpu()
+    src = ArraySource(A, 256)
+    runs = [rid_streamed(2, src, k, overlap=o) for o in (True, False, True)]
+    for f in "BPJQR":
+        a = getattr(runs[0], f)
+        assert all(torch.equal(getattr(r, f), a) for r in runs[1:]), f
+    spec = SpectrumSource(3, m, n, "fast_decay", k, chunk_rows=512,
+                          dtype=dtype, floor=1e-12, device=dev)
+    s1, s2 = (rid_streamed(2, spec, k, overlap=o) for o in (True, False))
+    assert all(torch.equal(getattr(s1, f), getattr(s2, f)) for f in "BPJQR")
+    dense = rid(2, spec.materialize(), k, sketch_kind="gaussian")
+    assert all(torch.equal(getattr(s1, f).cpu(), getattr(dense, f).cpu())
+               for f in "BPJQR")
+
+
+@pytest.mark.cuda
+def test_cuda_row_diagonal_matches_the_cpu():
+    """The splitmix64 row diagonal evaluated on the card (int64 wrap-around
+    and masked shifts) gives the CPU's signs exactly and its phases to the
+    last bits of the card's sin and cos."""
+    from repro_torch.data import row_diagonal
+    dev = _device()
+    for seed in (0, 7, 2 ** 63 + 5):
+        rows = (10 ** 6, 10 ** 6 + 4096)
+        assert torch.equal(row_diagonal(seed, *rows, torch.float64, dev).cpu(),
+                           row_diagonal(seed, *rows, torch.float64, "cpu"))
+        z = row_diagonal(seed, *rows, torch.complex128, dev).cpu()
+        assert float((z - row_diagonal(seed, *rows, torch.complex128,
+                                       "cpu")).abs().max()) <= 1e-15
