@@ -54,6 +54,25 @@ in order, printing one JSON line per phase:
                  sketch (gated); (c) a job killed in pass 1 and in pass 2,
                  resumed, bit-equal to an uninterrupted run; no ref.py
                  function given a CUDA tensor;
+  sharded  -- ``rid_streamed(..., group=g)`` on a one-rank NCCL group:
+                 (a) the main row from the host copy of phase main's
+                 ``A``, bit-equal in B, P, J, Q and R to
+                 ``rid_distributed(..., qr_impl="panel_parallel")`` on that
+                 matrix, overlapped and not, with the launches of
+                 sketch_accum (one a chunk), panel_coeff and panel_apply;
+                 (b) the paper's 64 GB row in c128 from a
+                 ``SpectrumSource`` on the card, peak memory within 1 % of
+                 m=2^16's, eq. (3) in closed form, the pivots against phase
+                 stream's, watched by a ``TelemetryServer`` on 127.0.0.1
+                 (scraped mid pass 1 and at the end, equal to the tracer's
+                 counters) and a ``ProgressReporter``; (c) its timeline
+                 (self times summing to the wall within 1 %, the critical
+                 path), the overlap report of (a)'s two runs and (a)'s
+                 ``psum_overlap``; (d) a kill in each pass, resumed
+                 bit-equal; (e) ``bench_stream``'s sharded sweep (a
+                 ``FileSource``) and ``bench_trace``, both traces
+                 validated; (f) a deep-traced ``rid``: 13 ``qr.panel``
+                 spans with their device times;
   srht     -- ``rid(seed, A, 400, sketch_kind="srht")`` on a matrix of the
                  main row's shape: the fwht kernel once a factor; eq. (3)
                  for it reported (the blocked engine's reading, ROADMAP
@@ -142,7 +161,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 from pathlib import Path
 from unittest import mock
 
@@ -351,6 +372,9 @@ def main() -> int:
             fields_equal, killed_twice_then_resumed)
         from repro_torch.data import spectrum_id_error
         from repro_torch.obs import tracing
+        from repro_torch.obs import (ProgressReporter, TelemetryServer,
+                                     Timeline, overlap_report)
+        from repro_torch.benchmarks import bench_stream, bench_trace
         from repro_torch.stream import ArraySource, SpectrumSource, rid_streamed
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
@@ -1241,15 +1265,15 @@ def main() -> int:
             out = fn()
         return out, sorted(hits)
 
-    def stream_call(source, k, **kw) -> tuple:
-        """One ``rid_streamed`` on the card under the obs tracer, its
-        launch counts from 0, its peak device memory over the call:
-        ``(result, row)``."""
+    def stream_call(source, k, tracer=None, **kw) -> tuple:
+        """One ``rid_streamed`` on the card under the obs tracer (``tracer``
+        when given), its launch counts from 0, its peak device memory over
+        the call: ``(result, row)``."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        with tracing() as tr:
+        with tracing(tracer) as tr:
             dec = rid_streamed(SEED, source, k, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1317,6 +1341,7 @@ def main() -> int:
                 row["finite"] = bool(torch.isfinite(dec.P).all()
                                      and torch.isfinite(dec.B).all())
                 row["J_distinct"] = int(torch.unique(dec.J).numel()) == big.k
+                keep[f"stream_J_{dname(dtype)}_{m}"] = dec.J.cpu()
                 if m == big.m:
                     row["input_bytes"] = m * big.n * dec.B.element_size()
                     cg, cg_row = stream_call(spec, big.k, qr_impl="cgs2")
@@ -1374,6 +1399,238 @@ def main() -> int:
         check(kr["pass1_kill_fired"] and kr["pass2_kill_fired"]
               and kr["bit_equal"], f"stream: kill and resume {kr}")
 
+    def scrape(url: str) -> str:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            check(resp.status == 200, f"sharded: {url} answered "
+                  f"{resp.status}")
+            return resp.read().decode()
+
+    def prom_value(text: str, name: str) -> float:
+        for line in text.splitlines():
+            if line.startswith(name + " "):
+                return float(line.split(" ")[1])
+        raise PhaseError(f"sharded: {name} missing from the scrape")
+
+    def run_sharded_phase(keep, g) -> dict:
+        """Phase sharded, (a)-(d) and (f) on the one-rank group ``g``:
+        (a) the main row from the host copy of phase main's ``A``, bit for
+        bit against phase distributed's call on that matrix, overlapped
+        and not; (b) the paper's 64 GB row in c128 from a
+        ``SpectrumSource`` on the card, watched through a
+        ``TelemetryServer`` and a ``ProgressReporter``, and at m = 2^16;
+        (c) the timeline of (b), the overlap report and ``psum_overlap``
+        of (a); (d) a kill in each pass, resumed; (f) one deep-traced
+        ``rid`` at the main row."""
+        out = {"world": dist.get_world_size(g),
+               "backend": str(dist.get_backend(g)),
+               "chunk_rows": STREAM_CHUNK}
+        k, l = MAIN_K, 2 * MAIN_K
+        n_panels = math.ceil(k / PANEL)
+        src = ArraySource(keep["A"], STREAM_CHUNK)
+        A = keep["A"].to(dev)
+        want = rid_distributed(SEED, A, k, group=g, sketch_kind="gaussian",
+                               qr_impl="panel_parallel")
+        want = {f: getattr(want, f).cpu() for f in "BPJQR"}
+        # (f) one deep-traced rid at the main row: a qr.panel span a panel,
+        # each closed on the device.
+        with tracing(deep=True) as tr_deep:
+            rid(SEED, A, k, sketch_kind="gaussian")
+        panels = [sp for sp in tr_deep.spans if sp.name == "qr.panel"]
+        out["f_deep_rid"] = {
+            "qr_panel_spans": len(panels),
+            "qr_panel_ms": [1e3 * sp.dur for sp in panels],
+            "qr_final_r_ms": [1e3 * sp.dur for sp in tr_deep.spans
+                              if sp.name == "qr.final_r"],
+            "qr_panels_counter": tr_deep.metrics.counter("qr.panels").value}
+        del A
+        torch.cuda.empty_cache()
+        # (a) the main row, streamed and sharded.
+        dec, out["a_first_call"] = stream_call(src, k, group=g)
+        del dec
+        traces = {}
+        for overlap in (True, False):
+            traces[overlap] = Tracer()
+            dec, row = stream_call(src, k, tracer=traces[overlap], group=g,
+                                   overlap=overlap)
+            row["bit_equal_to_rid_distributed"] = {
+                f: bool(torch.equal(getattr(dec, f).cpu(), want[f]))
+                for f in "BPJQR"}
+            row["expected_launches"] = {
+                "sketch_accum": math.ceil(MAIN_M / STREAM_CHUNK),
+                "panel_coeff": n_panels, "panel_apply": n_panels,
+                "panel_apply(emit_norms)": 1, "panel_step": 0}
+            out["a_overlap" if overlap else "a_serial"] = row
+            del dec
+        traced = profiled(lambda: stream_call(src, k, group=g))
+        out["a_traced"] = {key: traced[key] for key in (
+            "traced_wall_s", "device_busy_ms", "device_idle_share",
+            "top_kernels")}
+        del src, want
+        torch.cuda.empty_cache()
+        # (c) the overlap audit of (a) and its panel schedule.
+        tl_pipe = Timeline.from_tracer(traces[True])
+        out["c_overlap_report"] = overlap_report(
+            tl_pipe, Timeline.from_tracer(traces[False]))
+        out["c_psum_overlap"] = tl_pipe.psum_overlap()
+        out["c_psum_expected"] = (n_panels - 1) / n_panels
+
+        # (b) the paper's 64 GB row in c128, watched.
+        big = PAPER_GRID[3]
+        C = math.ceil(big.m / STREAM_CHUNK)
+        rows = {}
+        for m in (MAIN_M, big.m):
+            spec = SpectrumSource(SEED + 40, m, big.n, "fast_decay", big.k,
+                                  chunk_rows=STREAM_CHUNK,
+                                  dtype=torch.complex128, floor=1e-12,
+                                  device=dev)
+            if m != big.m:
+                dec, row = stream_call(spec, big.k, group=g)
+                rows[f"m={m}"] = row
+                del dec, spec
+                torch.cuda.empty_cache()
+                continue
+            tracer, mid = Tracer(), {}
+            rep_ = ProgressReporter()
+            with TelemetryServer(registry=tracer.metrics, progress=rep_,
+                                 host="127.0.0.1", port=0) as srv:
+
+                def scrape_mid(snap, url=srv.url):
+                    if snap["phase"] == "pass1" and snap["done"] == C // 2 \
+                            and not mid:
+                        text = scrape(url + "/metrics")
+                        mid.update(done=snap["done"], chunks=prom_value(
+                            text, "repro_stream_chunks_total"))
+                rep_.callbacks.append(scrape_mid)
+                dec, row = stream_call(spec, big.k, tracer=tracer, group=g,
+                                       progress=rep_)
+                final = scrape(srv.url + "/metrics")
+                prog = json.loads(scrape(srv.url + "/progress"))
+                health = json.loads(scrape(srv.url + "/healthz"))
+                row["telemetry"] = {
+                    "url": srv.url, "mid_pass1": mid,
+                    "chunks_scraped": prom_value(
+                        final, "repro_stream_chunks_total"),
+                    "chunks_traced": tracer.metrics.counter(
+                        "stream.chunks").value,
+                    "h2d_bytes_scraped": prom_value(
+                        final, "repro_stream_h2d_bytes_total"),
+                    "h2d_bytes_traced": tracer.metrics.counter(
+                        "stream.h2d_bytes").value,
+                    "progress": {key: prog[key] for key in
+                                 ("state", "phase", "done", "total")},
+                    "healthz": health["status"]}
+            bound = error_bound(m, big.n, big.k) * float(spec.sigmas[big.k])
+            row["error_over_bound"] = spectrum_id_error(
+                spec.factors, dec.J, dec.P) / bound
+            row["finite"] = bool(torch.isfinite(dec.P).all()
+                                 and torch.isfinite(dec.B).all())
+            row["J_distinct"] = int(torch.unique(dec.J).numel()) == big.k
+            unsharded = keep[f"stream_J_complex128_{m}"]
+            row["pivot_overlap_with_stream_blocked"] = len(
+                set(dec.J.tolist()) & set(unsharded.tolist())) / big.k
+            row["input_bytes"] = m * big.n * dec.B.element_size()
+            # (c) the timeline of the watched run.
+            tl = Timeline.from_tracer(tracer)
+            self_sum = sum(st.self_total for st in tl.phases().values())
+            row["timeline"] = {
+                "wall_s": tl.wall(), "self_time_sum_s": self_sum,
+                "critical_path": tl.critical_path()[:8],
+                "throughput": tl.throughput()}
+            rows[f"m={m}"] = row
+            del dec, spec
+            torch.cuda.empty_cache()
+        out["b_paper_row_complex128"] = rows
+
+        # (d) a kill in each pass, resumed, sharded.
+        gen_k = torch.Generator()
+        gen_k.manual_seed(SEED + 41)
+        A_small = torch.randn((4096, 1024), generator=gen_k,
+                              dtype=torch.float64)
+        clean = rid_streamed(1, ArraySource(A_small, 512), 32, group=g)
+        killed1, killed2, resumed = killed_twice_then_resumed(
+            A_small, 512, 32, dev, group=g)
+        out["d_kill_resume"] = {"m": 4096, "n": 1024, "k": 32,
+                                "chunk_rows": 512,
+                                "pass1_kill_fired": killed1,
+                                "pass2_kill_fired": killed2,
+                                "bit_equal": fields_equal(clean, resumed)}
+        return out
+
+    def check_sharded(res: dict) -> None:
+        for key in ("a_overlap", "a_serial"):
+            row = res[key]
+            check(all(row["bit_equal_to_rid_distributed"].values()),
+                  f"sharded {key}: not bit-equal to rid_distributed: "
+                  f"{row['bit_equal_to_rid_distributed']}")
+            got = {name: row["launches"][name]
+                   for name in row["expected_launches"]}
+            check(got == row["expected_launches"],
+                  f"sharded {key}: launches {got}, expected "
+                  f"{row['expected_launches']}")
+        big = PAPER_GRID[3]
+        rows = res["b_paper_row_complex128"]
+        full, small = rows[f"m={big.m}"], rows[f"m={MAIN_M}"]
+        check(full["launches"]["sketch_accum"]
+              == math.ceil(big.m / STREAM_CHUNK),
+              f"sharded (b): launches {full['launches']}")
+        check(full["finite"] and full["J_distinct"]
+              and full["error_over_bound"] <= 1,
+              f"sharded (b): J, P or eq. (3) off: {full['error_over_bound']}")
+        flat = abs(full["max_memory_allocated"]
+                   / small["max_memory_allocated"] - 1)
+        check(flat <= 0.01, f"sharded (b): peak memory "
+              f"{full['max_memory_allocated']} at m={big.m} against "
+              f"{small['max_memory_allocated']} at m={MAIN_M}")
+        tel = full["telemetry"]
+        C = math.ceil(big.m / STREAM_CHUNK)
+        check(tel["mid_pass1"].get("chunks") == C // 2
+              and tel["chunks_scraped"] == tel["chunks_traced"] == C
+              and tel["h2d_bytes_scraped"] == tel["h2d_bytes_traced"],
+              f"sharded (b): telemetry against the tracer {tel}")
+        check(tel["progress"]["done"] == tel["progress"]["total"] == 2 * C
+              and tel["progress"]["state"] == "done"
+              and tel["healthz"] == "ok",
+              f"sharded (b): /progress or /healthz {tel}")
+        tl = full["timeline"]
+        check(abs(tl["self_time_sum_s"] / tl["wall_s"] - 1) <= 0.01,
+              f"sharded (c): phase self-times {tl['self_time_sum_s']} "
+              f"against the wall {tl['wall_s']}")
+        check(0.0 <= res["c_overlap_report"]["hidden_fraction"] <= 1.0,
+              f"sharded (c): {res['c_overlap_report']}")
+        check(res["c_psum_overlap"] == res["c_psum_expected"],
+              f"sharded (c): psum_overlap {res['c_psum_overlap']}")
+        kr = res["d_kill_resume"]
+        check(kr["pass1_kill_fired"] and kr["pass2_kill_fired"]
+              and kr["bit_equal"], f"sharded (d): kill and resume {kr}")
+        deep = res["f_deep_rid"]
+        n_panels = math.ceil(MAIN_K / PANEL)
+        check(deep["qr_panel_spans"] == n_panels == deep["qr_panels_counter"]
+              and all(ms > 0 for ms in deep["qr_panel_ms"]),
+              f"sharded (f): {deep}")
+
+    def run_sharded_benchmarks(g) -> dict:
+        """Phase sharded (e): ``bench_stream``'s sharded sweep on ``g``
+        (world 1, a ``FileSource`` in a temporary directory), then
+        ``bench_trace`` into a temporary directory, both traces
+        validated."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = bench_stream.stream_sharded_sweep(g, device=dev)
+        check(len(rows) == 1 and rows[0]["ndev"] == 1
+              and rows[0]["on_disk_bytes"] > rows[0]["peak_device_bytes"],
+              f"sharded (e): bench_stream --sharded rows {rows}")
+        with tempfile.TemporaryDirectory() as tmp:
+            with contextlib.redirect_stdout(io.StringIO()):
+                written = bench_trace.main(["--out", tmp])
+            traces = []
+            for path, nspans in written:
+                bench_trace.validate(path)
+                traces.append({"file": Path(path).name, "spans": nspans,
+                               "bytes": Path(path).stat().st_size})
+        check([t["file"] for t in traces] == ["stream_trace.json",
+                                                "serve_trace.json"],
+              f"sharded (e): bench_trace wrote {traces}")
+        return {"bench_stream_sharded": rows, "bench_trace": traces}
+
     def run_rid(m, n, k, dtype, keep=None, **kw):
         """One ``rid`` on a fresh low-rank ``A``; with ``keep`` (a dict),
         host copies of ``A`` and of the result's fields go there."""
@@ -1417,10 +1674,23 @@ def main() -> int:
     # ------------------- stream: the streamed ID (rid_streamed) on one card
     res, ref_hits = ref_calls_on_card(
         lambda: run_stream_phase(main_keep))
-    del main_keep
     emit({"phase": "stream", **res, "ref_py_given_cuda_tensors": ref_hits})
     check(not ref_hits, f"stream: CUDA tensors reached {ref_hits}")
     check_stream(res)
+
+    # ----------- sharded: rid_streamed(group=) on the one-rank NCCL group
+    t_sharded = time.perf_counter()
+    with bench_error.one_rank_group(dev) as g:
+        res, ref_hits = ref_calls_on_card(
+            lambda: run_sharded_phase(main_keep, g))
+        emit({"phase": "sharded", **res,
+              "ref_py_given_cuda_tensors": ref_hits})
+        check(not ref_hits, f"sharded: CUDA tensors reached {ref_hits}")
+        check_sharded(res)
+        res = run_sharded_benchmarks(g)
+    del main_keep
+    emit({"phase": "sharded", "part": "e", **res,
+          "phase_s": time.perf_counter() - t_sharded})
 
     # ------------------- srht: the main row through the fwht kernel
     # rid(sketch_kind="srht") on a matrix of the main row's shape from a

@@ -52,6 +52,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.rng import check_device
+from ..obs import trace as obs_trace
 from .registry import EntryPoint, OverlapSpec
 from .report import Finding
 
@@ -195,13 +196,14 @@ class RunEntry:
 
 def run_entry(entry: EntryPoint, device="cuda") -> RunEntry:
     """Build ``entry`` on ``device`` (the card unless it names the CPU) and
-    call it once under the recorders."""
+    call it once under the recorders, with an obs tracer installed: the
+    engines' spans are live, so the host-sync budget holds with them."""
     device = check_device(device)
     fn, args = entry.build(device)
     floats = [t for t in _tensors(args)
               if t.dtype.is_floating_point or t.dtype.is_complex]
     inputs_32 = all(t.element_size() <= 4 for t in floats)
-    with record() as rec:
+    with record() as rec, obs_trace.tracing():
         fn(*args)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

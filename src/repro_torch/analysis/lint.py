@@ -44,9 +44,9 @@ The conventions are the repo's own, turned into checks:
                                   is an attack surface and a test hazard;
                                   ``obs/telemetry.py`` is the ONE
                                   sanctioned server module (the
-                                  ``/metrics`` endpoint, not ported yet),
-                                  mirroring the ``obs/clock.py`` clock
-                                  allowlist.
+                                  ``/metrics``, ``/healthz`` and
+                                  ``/progress`` endpoint), mirroring the
+                                  ``obs/clock.py`` clock allowlist.
   ``lint.duplicate-validation``   a re-inlined copy of the canonical
                                   rank/panel bound messages outside
                                   ``core/validate.py`` — shared

@@ -72,9 +72,7 @@ class EntryPoint:
 _REGISTRY: dict = {}
 
 # Imported (in order) by load_entry_points to trigger the registration
-# hooks; keep in sync with the engine modules that call register().  The
-# sharded streamed entry (the reference's ``rid_streamed.sharded_step``)
-# comes with the sharded ``rid_streamed``.
+# hooks; keep in sync with the engine modules that call register().
 ENGINE_MODULES = (
     "repro_torch.core.rid",
     "repro_torch.core.qr",

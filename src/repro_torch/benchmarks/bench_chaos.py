@@ -51,24 +51,26 @@ def fields_equal(a, b) -> bool:
 
 
 def killed_twice_then_resumed(A, chunk_rows: int, k: int, dev,
-                              seed: int = 0) -> tuple:
+                              seed: int = 0, group=None) -> tuple:
     """``(pass-1 kill fired, pass-2 kill fired, result)`` of one job killed
     twice: first at chunk 3 of pass 1; the resume then carries pass 1 from
     chunk 3 to its end and is killed at chunk 1 of pass 2 (that chunk's
     first read, since the resumed pass 1 began past it); a last resume
-    gathers the rest.  Needs at least 4 chunks."""
+    gathers the rest.  Needs at least 4 chunks.  ``group`` shards the job
+    (``rid_streamed(..., group=)``); every rank kills at the same reads."""
     with tempfile.TemporaryDirectory() as ckpt_dir:
         fired = []
         for kill_at in (3, 1):
             killer = FlakySource(ArraySource(A, chunk_rows),
                                  FaultPlan(seed=seed, kill_at=(kill_at,)))
             try:
-                rid_streamed(1, killer, k, resume_dir=ckpt_dir, device=dev)
+                rid_streamed(1, killer, k, resume_dir=ckpt_dir, device=dev,
+                             group=group)
                 fired.append(False)
             except ProcessKilled:
                 fired.append(True)
         out = rid_streamed(1, ArraySource(A, chunk_rows), k,
-                           resume_dir=ckpt_dir, device=dev)
+                           resume_dir=ckpt_dir, device=dev, group=group)
     return fired[0], fired[1], out
 
 

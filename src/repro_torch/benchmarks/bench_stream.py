@@ -1,9 +1,9 @@
-"""The streamed ID's scaling on one device: peak device memory against the
-input's size, and the overlap of the host -> device copies with the
-accumulation (counterpart of the JAX harness's ``bench_stream``, its
-single-device sweep).
+"""The streamed ID's scaling: peak device memory against the input's
+size and the overlap of the host -> device copies with the accumulation
+on one device, and the sharded stream's weak scaling over ranks
+(counterpart of the JAX harness's ``bench_stream``).
 
-    python -m repro_torch.benchmarks.bench_stream [--full]
+    python -m repro_torch.benchmarks.bench_stream [--full] [--sharded]
         [--device cuda|cpu] [--json PATH]
 
 Host-resident f32 matrices of growing ``m`` (``n = 512``, ``k = 48``,
@@ -29,19 +29,46 @@ On a card the run asserts that the largest input exceeds the peak device
 memory it was decomposed in, and that the peak stays flat across the
 sweep (within 2x).  On the CPU (``--device cpu``) the device fields are
 None and the times are the CPU's: a check of the harness, not a
-measurement.  Rows go to stdout and to ``--json``, the port's own record.
+measurement.  Rows go to stdout and, with ``--json PATH``, to that file.
+
+``--sharded`` runs ``stream_sharded_sweep``: the file-backed sharded
+stream (``rid_streamed(..., group=)``) at world sizes 1, 2, 4, 8 up to the
+group's, ``n = 256 * world`` (each rank keeps 256 columns), ``m = 8192``
+(16384 with ``--full``), ``k = 48``, ``chunk_rows = 512``, f32 from a
+``FileSource`` over a ``.npy`` in a temporary directory; one row each:
+
+  bench = "stream_sharded": ndev, m, n, k, chunk_rows, on_disk_bytes,
+  wall_s (the root span, after a warm-up call), peak_device_bytes (the
+  ranks' ``max_memory_allocated`` over the call, above what each held
+  before it, summed), peak_per_device_bytes (the largest rank's),
+  acc_shard_bytes (the l x n/world accumulator shard,
+  the same in every row by construction).
+
+On a card it asserts that every file exceeds the device memory it was
+decomposed in and that the per-device peak stays flat (within 2x) as
+ranks and columns grow together.  The CLI joins the group ``torchrun``
+describes (``WORLD_SIZE``, one rank a card, ``LOCAL_RANK``'s), or else a
+one-rank group.
 """
 from __future__ import annotations
 
+import contextlib
+import datetime
+import os
+import tempfile
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.rng import check_device
 from ..obs import MeteredSource, tracing
-from ..stream import ArraySource, rid_streamed
+from ..stream import ArraySource, FileSource, rid_streamed
+from .bench_error import one_rank_group
 from .common import append_json_rows, cli_parser, emit
 
-__all__ = ["SWEEP_MS", "FULL_MS", "stream_sweep", "main"]
+__all__ = ["SWEEP_MS", "FULL_MS", "stream_sweep", "stream_sharded_sweep",
+           "main"]
 
 N, K, CHUNK_ROWS = 512, 48, 512
 SWEEP_MS = (8192, 16384, 32768)
@@ -132,11 +159,109 @@ def stream_sweep(*, full: bool = False, device="cuda",
     return rows + phase_rows
 
 
+# The sharded sweep: columns a rank, rows (--full: FULL_SHARDED_M).
+N0, SHARDED_M, FULL_SHARDED_M = 256, 8192, 16384
+SHARDED_WORLDS = (1, 2, 4, 8)
+
+
+def stream_sharded_sweep(group, *, full: bool = False, device="cuda",
+                         json_path=None) -> list[dict]:
+    """Weak scaling of the file-backed sharded stream over ``group`` (the
+    default group when it has more than one rank: the smaller worlds run
+    on groups made from its first ranks); every rank calls it.  Returns
+    the rows (module docstring) on rank 0, ``[]`` elsewhere."""
+    dev = check_device(device)
+    cuda = dev.type == "cuda"
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    granks = dist.get_process_group_ranks(group)
+    m = FULL_SHARDED_M if full else SHARDED_M
+    l = 2 * K
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for ndev in (d for d in SHARDED_WORLDS if d <= world):
+            sub = group if ndev == world else dist.new_group(granks[:ndev])
+            if rank >= ndev:
+                continue
+            n = N0 * ndev
+            path = os.path.join(tmp, f"a_{ndev}.npy")
+            np.save(path, np.asarray(
+                np.random.default_rng(3).standard_normal((m, n)), np.float32))
+            with FileSource(path, CHUNK_ROWS) as src:
+                rid_streamed(1, src, K, group=sub, device=dev)   # warm-up
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                    held = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                with tracing() as tr:
+                    rid_streamed(1, src, K, group=sub, device=dev)
+            peak = per_dev = None
+            if cuda:
+                mine = torch.cuda.max_memory_allocated(dev) - held
+                both = torch.tensor([mine, mine], dtype=torch.int64,
+                                    device=dev)
+                dist.all_reduce(both[:1], group=sub)
+                dist.all_reduce(both[1:], op=dist.ReduceOp.MAX, group=sub)
+                peak, per_dev = both.tolist()
+            rows.append({
+                "bench": "stream_sharded", "device": str(dev), "ndev": ndev,
+                "m": m, "n": n, "k": K, "chunk_rows": CHUNK_ROWS,
+                "on_disk_bytes": os.path.getsize(path),
+                "wall_s": _root_dur(tr), "peak_device_bytes": peak,
+                "peak_per_device_bytes": per_dev,
+                "acc_shard_bytes": l * (n // ndev) * 4})
+            os.remove(path)
+    if rank:
+        return []
+    emit(rows, header=f"sharded file-backed streamed ID on {dev}: weak "
+                      f"scaling (ranks x columns; flat per-device memory)")
+    if json_path:
+        append_json_rows(json_path, rows)
+    if cuda:
+        for r in rows:
+            assert r["on_disk_bytes"] > r["peak_device_bytes"], r
+        per_dev = [r["peak_per_device_bytes"] for r in rows]
+        assert max(per_dev) < 2 * min(per_dev), \
+            f"per-device peak grows with the ranks: {per_dev}"
+    return rows
+
+
+@contextlib.contextmanager
+def _cli_group(device):
+    """``(group, device)``: the group ``torchrun`` describes (one rank a
+    card) or a one-rank group (``bench_error.one_rank_group``)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        with one_rank_group(device) as group:
+            yield group, check_device(device)
+        return
+    dev = check_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="env://",
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        yield dist.group.WORLD, dev
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> None:
     ap = cli_parser("The streamed ID's peak device memory against m, and "
-                    "its copy/accumulate overlap")
+                    "its copy/accumulate overlap; --sharded: the sharded "
+                    "stream's weak scaling")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the file-backed sharded sweep (n grows with the "
+                         "ranks) instead of the one-device m sweep")
     args = ap.parse_args(argv)
-    stream_sweep(full=args.full, device=args.device, json_path=args.json)
+    if args.sharded:
+        with _cli_group(args.device) as (group, dev):
+            stream_sharded_sweep(group, full=args.full, device=dev,
+                                 json_path=args.json)
+    else:
+        stream_sweep(full=args.full, device=args.device,
+                     json_path=args.json)
 
 
 if __name__ == "__main__":

@@ -35,6 +35,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core.rng import check_device
+
 __all__ = ["save_pytree", "restore_pytree", "latest_step",
            "CheckpointManager"]
 
@@ -137,12 +139,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_pytree(directory: str, step: int, like, *, host: bool = False,
-                   device="cpu"):
+                   device="cuda"):
     """Restore step ``step`` into the structure of ``like`` (a tree whose
     leaves have ``.shape`` and ``.dtype``: tensors or numpy arrays).  Each
     leaf's file crc32 is checked against the manifest, its shape against
     ``like``'s.  ``host=True`` returns numpy leaves with the stored bits
-    and dtypes; otherwise tensors on ``device``."""
+    and dtypes; otherwise tensors on ``device`` (default the card, which
+    raises without one; ``"cpu"`` restores to host tensors)."""
+    if not host:
+        device = check_device(device)
     path = os.path.join(directory, f"step_{step:06d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
@@ -207,8 +212,9 @@ class CheckpointManager:
             write()
             self.wait()
 
-    def restore_latest(self, like, *, host: bool = False, device="cpu"):
-        """``(step, tree)`` of the latest step, or ``(None, None)``."""
+    def restore_latest(self, like, *, host: bool = False, device="cuda"):
+        """``(step, tree)`` of the latest step, or ``(None, None)``; the
+        leaves as ``restore_pytree`` gives them (default on the card)."""
         self.wait()
         step = latest_step(self.directory)
         if step is None:

@@ -1,5 +1,5 @@
 """QR factorizations of the sketch (paper eq. 8-9); counterpart of
-``repro.core.qr`` without its deep-tracing per-panel loop.
+``repro.core.qr``.
 
 * ``cgs2_pivoted_qr``    -- the paper's iterated classical Gram-Schmidt
   with greedy column pivoting, the parity oracle.
@@ -17,12 +17,22 @@ Where the reference branches on device with ``lax.cond`` (the degenerate
 panel check), the port branches on the host: one synchronization per
 panel.  ``torch.topk`` may break ties in another order than
 ``lax.top_k``, so pivot sets are compared on well-separated spectra.
+
+Observability (``repro_torch.obs``), the reference's spans in the one
+eager loop: ``pivoted_qr`` opens ``qr.pivoted`` around the engine, or,
+for the fused engine under ``tracing(deep=True)``, ``qr.blocked_deep``;
+the fused loop opens one ``qr.panel`` span a panel (``engine``,
+``panel``, ``off``, ``width``; the ``qr.panels`` counter) and
+``qr.final_r``.  A span waits for the device at its close only under deep
+tracing, so normal tracing adds no host synchronization, and with no
+tracer each costs a ``None`` check.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.panel_step import panel_step
+from ..obs import trace as obs_trace
 from .types import QRResult, real_dtype_of
 from .validate import check_panel, check_rank_bounds
 
@@ -232,13 +242,28 @@ def blocked_pivoted_qr(Y: torch.Tensor, k: int, *, panel: int = 32,
     Z = Y
     off = 0
     if panel_impl == "fused":
+        deep = obs_trace.deep_tracing()
+        panels_ctr = obs_trace.counter("qr.panels")
         res2 = _masked_res2(Z, picked, rdtype)   # the only full norm pass
+        pi = 0
         while off < k:
             b = min(panel, k - off)
-            Z, res2, picked, Q, piv = _fused_panel_update(
-                Z, res2, picked, Q, piv, off, b)
+            # panel= is the ordinal (the timeline's stragglers attribute
+            # by it), off and width locate it in the factorization.
+            with obs_trace.span("qr.panel", engine="blocked-fused",
+                                panel=pi, off=off, width=b) as sp:
+                Z, res2, picked, Q, piv = _fused_panel_update(
+                    Z, res2, picked, Q, piv, off, b)
+                if deep:
+                    sp.block_on((Z, res2, Q))
+            panels_ctr.add(1)
             off += b
-        return QRResult(Q=Q, R=Q.mH @ Y, piv=piv)
+            pi += 1
+        with obs_trace.span("qr.final_r") as sp:
+            R = Q.mH @ Y
+            if deep:
+                sp.block_on(R)
+        return QRResult(Q=Q, R=R, piv=piv)
     while off < k:
         b = min(panel, k - off)
         res2 = _masked_res2(Z, picked, rdtype)
@@ -302,15 +327,31 @@ def pivoted_qr(Y: torch.Tensor, k: int, *, impl: str = "blocked",
     """Dispatch the pivoted QR of the sketch: ``impl="cgs2"`` (the per-column
     oracle) or ``impl="blocked"`` (the panel engine; ``panel`` an int or
     ``"auto"``, ``panel_impl`` and ``norm_recompute`` as in
-    ``blocked_pivoted_qr``)."""
+    ``blocked_pivoted_qr``).  Opens the ``qr.pivoted`` span (``qr.blocked_
+    deep`` for the fused engine under deep tracing; module docstring)."""
     if impl not in ("cgs2", "blocked"):
         raise ValueError(
             f"unknown qr impl {impl!r}; expected 'cgs2' or 'blocked'")
+    deep = obs_trace.deep_tracing()
     if impl == "cgs2":
-        return cgs2_pivoted_qr(Y, k)
+        with obs_trace.span("qr.pivoted", impl="cgs2", k=k) as sp:
+            out = cgs2_pivoted_qr(Y, k)
+            if deep:
+                sp.block_on(out)
+        return out
     p = resolve_panel(panel, k, Y.shape[0])
-    return blocked_pivoted_qr(Y, k, panel=p, panel_impl=panel_impl,
-                              norm_recompute=norm_recompute)
+    if deep and panel_impl == "fused":
+        l, n = Y.shape
+        cm = obs_trace.span("qr.blocked_deep", l=l, n=n, k=k, panel=p)
+    else:
+        cm = obs_trace.span("qr.pivoted", impl="blocked", k=k, panel=p,
+                            panel_impl=panel_impl)
+    with cm as sp:
+        out = blocked_pivoted_qr(Y, k, panel=p, panel_impl=panel_impl,
+                                 norm_recompute=norm_recompute)
+        if deep:
+            sp.block_on(out)
+    return out
 
 
 # ----------------------------------------------------- analysis registry

@@ -38,6 +38,16 @@ bitwise identical on every rank.
 The backend must match the tensors: CUDA tensors need an NCCL group, CPU
 tensors a gloo group.  A gloo group given CUDA tensors raises, because
 gloo would stage them through host memory.
+
+Observability (``repro_torch.obs``): ``panel_parallel_qr_local`` opens one
+``qr.panel_parallel`` span with one ``qr.panel_schedule`` event a panel
+(``panel``, ``off``, ``width``, and ``psum="overlapped"`` when the next
+panel's norm all_reduce is in flight across this panel's deflation,
+``"serialized"`` on a recompute panel and on every 'gram' panel), the
+``qr.recompute_panels`` counter and, under deep tracing, the
+``qr.collective_bytes`` counter (the payload of every all_reduce the
+engine issues) and a close that waits for the device.  Normal tracing
+adds no host synchronization.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import torch.distributed as dist
 
 from ..kernels.panel_gram import panel_gram
 from ..kernels.panel_step import panel_apply, panel_coeff
+from ..obs import trace as obs_trace
 from .qr import (_colnorms2, _masked_res2, _panel_ok, householder_qr,
                  resolve_norm_recompute)
 from .tsolve import solve_upper_triangular_lib
@@ -193,7 +204,8 @@ def panel_parallel_qr_local(Y_loc: torch.Tensor, k: int, *, group,
 
     Returns ``(Q, piv, R_loc)``: ``Q`` (l x k) and the global pivots
     ``piv`` (k,) are bitwise identical on every rank; ``R_loc = Q^H Y_loc``
-    (k x n_loc) stays sharded."""
+    (k x n_loc) stays sharded.  Traced as ``qr.panel_parallel`` (module
+    docstring)."""
     ctx = "panel_parallel_qr_local: "
     check_group(group, Y_loc)
     ndev = dist.get_world_size(group)
@@ -202,10 +214,42 @@ def panel_parallel_qr_local(Y_loc: torch.Tensor, k: int, *, group,
     check_panel(panel, ctx=ctx)
     _check_panel_impl(panel_impl, ctx)
     recompute_every = resolve_norm_recompute(norm_recompute)
+    with obs_trace.span("qr.panel_parallel", l=l, n=n_loc * ndev, k=k,
+                        panel=panel, panel_impl=panel_impl,
+                        ndev=ndev) as sp:
+        out = _panel_parallel_loop(Y_loc, k, group, panel, panel_impl,
+                                   recompute_every, sp)
+        if obs_trace.deep_tracing():
+            sp.block_on(out)
+    return out
+
+
+def _panel_parallel_loop(Y_loc, k, group, panel, panel_impl,
+                         recompute_every, sp):
+    """The panel loop of ``panel_parallel_qr_local`` (validated there),
+    recording its schedule on the span ``sp``."""
+    ndev = dist.get_world_size(group)
+    l, n_loc = Y_loc.shape
     n = n_loc * ndev
     dtype, dev = Y_loc.dtype, Y_loc.device
     rdtype = real_dtype_of(dtype)
     off = dist.get_rank(group) * n_loc
+    traced = obs_trace.current_tracer() is not None
+    recompute_ctr = obs_trace.counter("qr.recompute_panels")
+    # The all_reduce payloads: l x b candidates and n norms a panel.
+    wire = obs_trace.counter("qr.collective_bytes") \
+        if obs_trace.deep_tracing() else None
+    esize = Y_loc.element_size()
+    rsize = torch.finfo(rdtype).bits // 8
+
+    def schedule(p_i, pos, b, serialized):
+        if traced:
+            sp.event("qr.panel_schedule", panel=p_i, off=pos, width=b,
+                     psum="serialized" if serialized else "overlapped")
+            if serialized and panel_impl == "fused":
+                recompute_ctr.add(1)
+        if wire is not None:
+            wire.add(l * b * esize + n * rsize)
 
     Q = torch.zeros((l, k), dtype=dtype, device=dev)
     piv = torch.zeros((k,), dtype=torch.int64, device=dev)
@@ -237,7 +281,10 @@ def panel_parallel_qr_local(Y_loc: torch.Tensor, k: int, *, group,
             p_i += 1
             more = pos + b < k
             sentinel = torch.full_like(r2d, -1.0)
-            if more and recompute_every and p_i % recompute_every == 0:
+            recompute = bool(more and recompute_every
+                             and p_i % recompute_every == 0)
+            schedule(p_i - 1, pos, b, recompute)
+            if recompute:
                 # Recompute panel: stage B emits the deflated shard's exact
                 # norms, and the collective is issued from those.
                 Z, r2x = panel_apply(Qp, W, Z, emit_norms=True)
@@ -257,8 +304,11 @@ def panel_parallel_qr_local(Y_loc: torch.Tensor, k: int, *, group,
             piv[pos:pos + b] = idx
             pos += b
         return Q, piv, Q.mH @ Y_loc
+    p_i = 0
     while pos < k:
         b = min(panel, k - pos)
+        schedule(p_i, pos, b, True)
+        p_i += 1
         res2 = _global_res2(Z, picked, n, group)
         idx = torch.topk(res2, b).indices
         C = gather_columns_psum(Z, idx, group)

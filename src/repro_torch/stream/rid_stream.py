@@ -36,6 +36,34 @@ accumulation on the compute stream and waits for each chunk (the
 baseline of ``bench_overlap``).  A chunk already on the device (a
 ``SpectrumSource``'s) is used where it is, without a copy.
 
+Sharded n axis (``group=``): every rank of a ``torch.distributed`` process
+group streams the same chunks and keeps only its contiguous block of
+``n / world`` columns (``core.distributed.shard_columns``'s), so ``m``
+streams from the host while ``n`` scales with the ranks.  Per rank:
+
+  phase             device bytes                     communication
+  sketch (pass 1)   l n/world (accumulator shard)    none: the operator
+                    + 2 chunk_rows n/world (buffers) acts on rows only
+                    + l chunk_rows (operator columns)
+  pivoted QR        l n/world + the panel state      ``core.qr_dist``: one
+                                                     l x b and one length-n
+                                                     all_reduce a panel
+  interp solve      k n/world                        one k x k gather
+  gather (pass 2)   0                                none: every rank
+                                                     gathers the same host B
+
+``sketch_accum`` computes every column on its own in a fixed row order,
+so a rank's accumulator is bit-equal to the same columns of the one-card
+accumulator, and the result is bit-equal to ``rid_distributed(...,
+sketch_kind="gaussian", qr_impl="panel_parallel")`` on the same matrix:
+``P`` and ``R`` are the rank's column blocks, ``J`` and ``Q`` replicated,
+``B`` the host gather.  Each rank checkpoints its own shard under
+``resume_dir/rank<r>-of-<world>``; a save is preceded by a one-element
+all_reduce, so no rank saves a step before every rank has reached it and
+the ranks' latest steps differ by at most the one write a kill can lose.
+A resume agrees on the least of the ranks' latest steps (one all_reduce)
+and rolls every rank back to it.
+
 Replay: ``rid_streamed`` gives the bits of the in-memory
 ``rid(seed, A, k, sketch_kind="gaussian")`` on the same device, in all
 five fields, for every ``chunk_rows`` that is a multiple of
@@ -71,28 +99,34 @@ every ``checkpoint_every`` chunks of pass 2 (``checkpoint.store``).
 Resuming replays the remaining blocks onto the saved accumulator bits,
 so a killed and resumed run is bit-equal to an uninterrupted one.  The
 fingerprint covers ``(m, n, k, l, chunk_rows, dtype, seed, the injected
-operator's bytes, the QR arguments, the source's fingerprint())``; a
-checkpoint of another job is refused, naming both fingerprints.
+operator's bytes, the QR arguments, the source's fingerprint())`` and,
+sharded, the world size; a checkpoint of another job, or of the same job
+on another world size, is refused, naming both fingerprints.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import re
+import shutil
 import types
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.store import CheckpointManager, latest_step, restore_pytree
 from ..core.errors import error_bound
 from ..core.qr import resolve_norm_recompute, resolve_panel
+from ..core.qr_dist import AXIS, check_group, panel_parallel_rid_interp_local
 from ..core.rid import _cast_interp, _qr_interp
 from ..core.rng import check_device, seed_of
 from ..core.sketch import finalize_gaussian_sketch, gaussian_omega_cols
 from ..core.types import IDResult
-from ..core.validate import check_l_ge_k, check_panel, check_rank_bounds
+from ..core.validate import (check_divides, check_l_ge_k, check_panel,
+                             check_rank_bounds)
 from ..kernels.sketch_accum import ACCUM_BLOCK, sketch_accum
 from ..obs import trace as obs_trace
 from ..obs.metrics import live_device_bytes
@@ -119,11 +153,13 @@ def _checked_chunk(source: ChunkSource, c: int) -> torch.Tensor:
 
 def source_fingerprint(seed: int, source: ChunkSource, k: int, l: int,
                        qr_impl: str, qr_panel, qr_norm_recompute,
-                       omega: Optional[torch.Tensor] = None) -> np.ndarray:
+                       omega: Optional[torch.Tensor] = None,
+                       world: Optional[int] = None) -> np.ndarray:
     """The resume identity: a sha256 digest (a (32,) uint8 array, the
     checkpointable form) of everything that fixes the output bits:
     geometry, dtype, chunking, the seed (or the injected operator's
-    bytes), the QR arguments and the source's own ``fingerprint()``."""
+    bytes), the QR arguments, the source's own ``fingerprint()`` and, for
+    a sharded job, the world size."""
     m, n = source.shape
     extra = getattr(source, "fingerprint", None)
     extra = extra() if callable(extra) else extra
@@ -133,6 +169,8 @@ def source_fingerprint(seed: int, source: ChunkSource, k: int, l: int,
             f"dtype={str(source.dtype).removeprefix('torch.')} "
             f"seed={seed} omega={op} "
             f"qr={qr_impl}/{qr_panel}/{qr_norm_recompute} src={extra!r}")
+    if world is not None:
+        text += f" world={world}"
     digest = hashlib.sha256(text.encode()).digest()
     return np.frombuffer(digest, np.uint8).copy()
 
@@ -150,23 +188,113 @@ def _resume_like(resume_dir: str, step: int) -> dict:
             for name in names}
 
 
-def _load_resume_state(resume_dir: str, fp: np.ndarray) -> Optional[dict]:
-    """The latest checkpoint in ``resume_dir`` as host numpy state, or None
-    for a fresh directory; refuses another job's checkpoint."""
-    step = latest_step(resume_dir)
+def _check_fp(path: str, step: int, got: np.ndarray, fp: np.ndarray) -> None:
+    if not np.array_equal(got, fp):
+        raise ValueError(
+            f"checkpoint at {path} (step {step}) was written by a "
+            f"different job: its fingerprint "
+            f"{bytes(got).hex()[:16]}... != this job's "
+            f"{bytes(fp).hex()[:16]}...; the same source, seed, k, l, "
+            f"chunking, qr arguments and world size are required for a "
+            f"bit-identical resume")
+
+
+def _saved_fp(path: str, step: int) -> np.ndarray:
+    """The fingerprint leaf of step ``step`` alone."""
+    return restore_pytree(path, step, _FP_LIKE, host=True)["fp"]
+
+
+def _load_resume_state(path: str, fp: np.ndarray, step: Optional[int] = None
+                       ) -> Optional[dict]:
+    """Checkpoint ``step`` (default the latest) in ``path`` as host numpy
+    state, or None for a fresh directory; refuses another job's."""
+    step = latest_step(path) if step is None else step
     if step is None:
         return None
-    state = restore_pytree(resume_dir, step, _resume_like(resume_dir, step),
-                           host=True)
-    if not np.array_equal(state["fp"], fp):
-        raise ValueError(
-            f"checkpoint at {resume_dir} (step {step}) was written by a "
-            f"different job: its fingerprint "
-            f"{bytes(state['fp']).hex()[:16]}... != this job's "
-            f"{bytes(fp).hex()[:16]}...; the same source, seed, k, l, "
-            f"chunking and qr arguments are required for a bit-identical "
-            f"resume")
+    state = restore_pytree(path, step, _resume_like(path, step), host=True)
+    _check_fp(path, step, state["fp"], fp)
     return state
+
+
+_SHARD_DIR = re.compile(r"^rank(\d+)-of-(\d+)$")
+_STEP_DIR = re.compile(r"^step_(\d+)$")
+_FP_LIKE = {"fp": types.SimpleNamespace(shape=(32,))}
+
+
+def _shard_dir(resume_dir: str, rank: int, world: int) -> str:
+    return os.path.join(resume_dir, f"rank{rank}-of-{world}")
+
+
+def _refuse_other_layouts(resume_dir: str, fp: np.ndarray,
+                          world: Optional[int]) -> None:
+    """Refuse the checkpoints another layout left in ``resume_dir``: an
+    unsharded job's (in ``resume_dir`` itself) for a sharded job, and the
+    shards of every other world size (of any world size for an unsharded
+    job).  Their fingerprints differ from this job's."""
+    paths = [] if world is None else [resume_dir]
+    if os.path.isdir(resume_dir):
+        paths += [os.path.join(resume_dir, d)
+                  for d in sorted(os.listdir(resume_dir))
+                  if (mt := _SHARD_DIR.match(d))
+                  and (world is None or int(mt.group(2)) != world)]
+    for path in paths:
+        step = latest_step(path)
+        if step is not None:
+            _check_fp(path, step, _saved_fp(path, step), fp)
+
+
+def _roll_back(path: str, step: Optional[int]) -> None:
+    """Delete this job's steps in ``path`` past ``step`` (all of them for
+    None): a rank ahead of the step the ranks agreed on must neither resume
+    from them nor keep them as its latest."""
+    if not os.path.isdir(path):
+        return
+    for d in os.listdir(path):
+        mt = _STEP_DIR.match(d)
+        if mt and (step is None or int(mt.group(1)) > step):
+            shutil.rmtree(os.path.join(path, d))
+
+
+def _agreed_resume_state(resume_dir: str, own: str, fp: np.ndarray, group,
+                         dev: torch.device) -> Optional[dict]:
+    """The sharded resume: every rank checks its checkpoints, then one
+    all_reduce(MIN) of ``(latest step, ok)`` agrees on the step every rank
+    holds (-1: start afresh) and on whether any rank refused; each rank
+    rolls back to that step and restores it."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    err, step = None, None
+    try:
+        _refuse_other_layouts(resume_dir, fp, world)
+        step = latest_step(own)
+        if step is not None:
+            _check_fp(own, step, _saved_fp(own, step), fp)
+    except ValueError as e:
+        err = e
+    votes = torch.tensor([-1 if step is None else step, err is None],
+                         dtype=torch.int64, device=dev)
+    dist.all_reduce(votes, op=dist.ReduceOp.MIN, group=group)
+    agreed, all_ok = votes.tolist()
+    if err is not None:
+        raise err
+    if not all_ok:
+        raise ValueError(f"rank {rank} of {world}: another rank refused its "
+                         f"checkpoint under {resume_dir}, and the ranks "
+                         f"resume together or not at all")
+    agreed = None if agreed < 0 else agreed
+    _roll_back(own, agreed)
+    if agreed is None:
+        return None
+    if not os.path.isdir(os.path.join(own, f"step_{agreed:06d}")):
+        raise ValueError(f"rank {rank} of {world}: the ranks agreed to "
+                         f"resume from step {agreed}, which {own} no longer "
+                         f"holds")
+    return _load_resume_state(own, fp, agreed)
+
+
+def _rank_barrier(group, dev: torch.device) -> None:
+    """A one-element all_reduce before a checkpoint: no rank saves a step
+    that another rank has not reached."""
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
 
 
 class _Feed:
@@ -186,10 +314,12 @@ class _Feed:
         self.used = [None, None]     # compute stream done with dbuf[s]
 
     def put(self, chunk: torch.Tensor, slot: int) -> tuple:
-        """``(chunk on the device, bytes sent)``; the compute stream waits
-        for the copy before anything it enqueues next."""
+        """``(chunk on the device, bytes sent)``, contiguous whatever the
+        strides of ``chunk`` (a rank's column block is a strided view); the
+        compute stream waits for the copy before anything it enqueues
+        next."""
         if chunk.device.type != "cpu" or not self.cuda:
-            return chunk.to(self.dev), 0
+            return chunk.to(self.dev).contiguous(), 0
         rows = chunk.shape[0]
         if self.pinned[slot] is None or self.pinned[slot].shape[0] < rows:
             shape = (rows,) + tuple(chunk.shape[1:])
@@ -233,13 +363,17 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
                  qr_norm_recompute="auto", overlap: bool = True,
                  retry=None, resume_dir: Optional[str] = None,
                  checkpoint_every: int = 1, progress=None, device="cuda",
-                 omega: Optional[torch.Tensor] = None) -> IDResult:
+                 omega: Optional[torch.Tensor] = None,
+                 group=None) -> IDResult:
     """Rank-``k`` randomized ID of a chunk-fed matrix: ``A ~= B @ P``.
 
     Bit-equal to ``rid(gen_or_seed, A, k, sketch_kind="gaussian", ...)``
     on the whole matrix on ``device``, for every ``chunk_rows`` that is a
     multiple of ``ACCUM_BLOCK`` (module docstring), and so is a run
-    resumed from ``resume_dir``.
+    resumed from ``resume_dir``.  With ``group``, every rank calls it
+    with the same arguments and it is bit-equal to ``rid_distributed(
+    gen_or_seed, A_loc, k, group=group, sketch_kind="gaussian",
+    qr_impl="panel_parallel", ...)`` on the rank's column block.
 
     Args:
       gen_or_seed: an int seed or a generator (one seed is drawn from it),
@@ -250,8 +384,9 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
       sketch_kind: must be ``'gaussian'``, the one operator that applies
         row chunk by row chunk.
       qr_impl / qr_panel / qr_norm_recompute: as ``rid``'s; ``'auto'``
-        resolves to ``'blocked'`` (the sharded ``'panel_parallel'`` needs
-        a process group, which this entry does not take yet).
+        resolves to ``'blocked'`` without ``group`` and to
+        ``'panel_parallel'`` with it (before the fingerprint, so the
+        checkpoints of an unsharded ``'auto'`` job stay valid).
       overlap: pipeline the host -> device copies with the accumulation
         (default); ``False`` serializes them.
       retry: a ``RetryPolicy`` every chunk read goes through (``None``:
@@ -262,15 +397,21 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
       checkpoint_every: checkpoint cadence in chunks (default 1).
       progress: a ``ProgressReporter``: ``2 C`` units (the chunks of both
         passes), the phases ``pass1`` / ``qr_interp`` / ``pass2``,
-        checkpoints, retries, and ``done`` / ``failed``.
+        checkpoints, retries, and ``done`` / ``failed``.  Sharded, rank 0
+        alone drives it; the other ranks ignore theirs.
       device: where the accumulation and QR run (default ``"cuda"``,
         which raises without a card; ``"cpu"`` runs the plain versions).
       omega: the unscaled gaussian operator (``l x m``) injected instead
         of drawn (the parity tests give it the reference's).
+      group: a ``torch.distributed`` process group (NCCL for a card, gloo
+        for the CPU) over which the ``n`` axis is sharded (module
+        docstring); ``n`` must divide its world size, and ``qr_impl``
+        must be ``'auto'`` or ``'panel_parallel'``.
 
     Returns an ``IDResult`` whose ``B`` (``m x k``) is a host tensor, so
     the device holds nothing that grows with ``m``; ``P``, ``J``, ``Q``
-    and ``R`` are on ``device``.
+    and ``R`` are on ``device``, ``P`` and ``R`` the rank's column blocks
+    when sharded.
     """
     if not isinstance(source, ChunkSource):
         raise ValueError(f"source must implement the ChunkSource protocol "
@@ -300,15 +441,34 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
     if checkpoint_every < 1:
         raise ValueError(f"need checkpoint_every >= 1, got "
                          f"checkpoint_every={checkpoint_every}")
+    # qr_impl resolves before the fingerprint: an unsharded 'auto' job
+    # digests as 'blocked', a sharded one as 'panel_parallel'.
     if qr_impl == "auto":
-        qr_impl = "blocked"
-    if qr_impl == "panel_parallel":
-        raise ValueError(f"qr_impl={qr_impl!r} factors column shards in "
-                         f"place over a process group, which rid_streamed "
-                         f"does not take yet; use 'blocked' or 'cgs2'")
-    if qr_impl == "blocked":
-        check_panel(resolve_panel(qr_panel, k, l), name="qr_panel")
+        qr_impl = "blocked" if group is None else "panel_parallel"
+    world, rank = 1, 0
+    if group is None:
+        if qr_impl == "panel_parallel":
+            raise ValueError(
+                f"qr_impl={qr_impl!r} factors column shards in place and "
+                f"needs group=...; got group=None: pass a process group or "
+                f"leave qr_impl='auto'")
+        if qr_impl == "blocked":
+            check_panel(resolve_panel(qr_panel, k, l), name="qr_panel")
+            resolve_norm_recompute(qr_norm_recompute)
+    else:
+        if qr_impl != "panel_parallel":
+            raise ValueError(
+                f"sharded rid_streamed factors the column shards in place; "
+                f"need qr_impl='panel_parallel' (or 'auto'), got "
+                f"qr_impl={qr_impl!r}")
+        check_group(group, torch.empty(0, device=dev))
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        check_divides(n, world, AXIS, ctx="rid_streamed: ")
+        qr_panel = resolve_panel(qr_panel, k, l)
+        check_panel(qr_panel, name="qr_panel")
         resolve_norm_recompute(qr_norm_recompute)
+        if rank:
+            progress = None
     if omega is not None and tuple(omega.shape) != (l, m):
         raise ValueError(f"omega {tuple(omega.shape)} must be (l, m) = "
                          f"{(l, m)}")
@@ -327,16 +487,26 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
             return gaussian_omega_cols(seed, r0, r1, l, dtype, dev)
         return omega[:, r0:r1].to(dev)
 
+    n_loc = n // world
+    c0, c1 = rank * n_loc, (rank + 1) * n_loc      # this rank's columns
     C = num_chunks(source)
     fp = source_fingerprint(seed, source, k, l, qr_impl, qr_panel,
-                            qr_norm_recompute, omega)
+                            qr_norm_recompute, omega,
+                            world=None if group is None else world)
     job = bytes(fp).hex()[:12]
     mgr = None
     phase, start1, start2 = 1, 0, 0
     acc = interp = B = None
     if resume_dir is not None:
-        mgr = CheckpointManager(resume_dir)
-        state = _load_resume_state(resume_dir, fp)
+        if group is None:
+            _refuse_other_layouts(resume_dir, fp, None)
+            ckpt_dir = resume_dir
+            state = _load_resume_state(ckpt_dir, fp)
+        else:
+            ckpt_dir = _shard_dir(resume_dir, rank, world)
+            state = _agreed_resume_state(resume_dir, ckpt_dir, fp, group,
+                                         dev)
+        mgr = CheckpointManager(ckpt_dir)
         if state is not None:
             phase = int(state["phase"])
             done = int(state["chunks_done"])
@@ -358,6 +528,8 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
         # The manager copies the tree to the host now and writes the files
         # on its own thread, beside the next chunks.
         with obs_trace.span("stream.checkpoint", step=step):
+            if group is not None:
+                _rank_barrier(group, dev)
             mgr.save(step, tree)
         ckpt_ctr.add(1)
         if progress is not None:
@@ -376,7 +548,7 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
             obs_trace.span("rid_streamed", m=m, n=n, k=k, l=l,
                            chunk_rows=chunk_rows, overlap=overlap,
                            dtype=str(dtype).removeprefix("torch."),
-                           device=str(dev)):
+                           device=str(dev), ndev=world):
         if resume_dir is not None and (start1 or phase == 2):
             obs_trace.event("stream.resume", phase=phase,
                             chunks_done=start1 if phase == 1 else start2)
@@ -389,7 +561,10 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
                     def send(c):
                         with obs_trace.span("stream.h2d", chunk=c,
                                             sync=deep) as sp:
-                            d, sent = feed.put(read_chunk(c), c % 2)
+                            ch = read_chunk(c)
+                            if group is not None:
+                                ch = ch[:, c0:c1]
+                            d, sent = feed.put(ch, c % 2)
                             h2d_ctr.add(sent)
                             if deep:
                                 sp.block_on(d)
@@ -433,8 +608,13 @@ def rid_streamed(gen_or_seed, source: ChunkSource, k: int, *,
                     progress.update(phase="qr_interp")
                 with obs_trace.span("stream.qr_interp", qr_impl=qr_impl,
                                     qr_panel=qr_panel) as sp:
-                    P, piv, Q, R = _qr_interp(Y, k, qr_impl, qr_panel,
-                                              qr_norm_recompute)
+                    if group is None:
+                        P, piv, Q, R = _qr_interp(Y, k, qr_impl, qr_panel,
+                                                  qr_norm_recompute)
+                    else:
+                        P, piv, Q, R = panel_parallel_rid_interp_local(
+                            Y, k, group=group, panel=qr_panel,
+                            norm_recompute=qr_norm_recompute)
                     P = _cast_interp(P, dtype)
                     sp.block_on((P, piv, Q, R))
                 del Y
@@ -521,11 +701,36 @@ def _analysis_build_stream_step(device):
     return step, (x, a, acc)
 
 
+def _analysis_build_stream_sharded_step(device):
+    # The sharded stream's device program on the default process group:
+    # one pass-1 accumulation of the rank's column block, then the
+    # panel-parallel QR and solve.
+    group = dist.group.WORLD
+    l, n, k, rows = 48, 400, 21, 2 * ACCUM_BLOCK
+    n_loc = n // dist.get_world_size(group)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    f32 = torch.float32
+    x = torch.randn((l, rows), generator=gen, dtype=f32, device=device)
+    a = torch.randn((rows, n_loc), generator=gen, dtype=f32, device=device)
+    acc = torch.randn((l, n_loc), generator=gen, dtype=f32, device=device)
+
+    def step(x, a, acc):
+        Y = finalize_gaussian_sketch(sketch_accum(x, a, acc), l, f32)
+        return panel_parallel_rid_interp_local(Y, k, group=group, panel=7)
+    return step, (x, a, acc)
+
+
 def _register_analysis_entries():
     from ..analysis.registry import register
+    l, n = 48, 400
     # k = 21 at panel width 7 is three panels, one scalar read each.
     register("rid_streamed.step", _analysis_build_stream_step,
              max_host_syncs=3)
+    # No collective of the sharded stream may materialize an l x n array.
+    register("rid_streamed.sharded_step", _analysis_build_stream_sharded_step,
+             max_collective_elems=l * n - 1, max_host_syncs=3,
+             tags=("distributed",))
 
 
 _register_analysis_entries()

@@ -126,7 +126,8 @@ def test_registry_names_and_duplicate_rejection():
     assert names == ["panel_parallel_qr_local.fused",
                      "panel_parallel_qr_local.gram", "pivoted_qr.blocked",
                      "rid", "rid_distributed.blocked",
-                     "rid_distributed.panel_parallel", "rid_streamed.step"]
+                     "rid_distributed.panel_parallel",
+                     "rid_streamed.sharded_step", "rid_streamed.step"]
     assert "control" in registry.get("panel_parallel_qr_local.gram").tags
     assert not registry.get("panel_parallel_qr_local.gram") \
         .overlap.expect_overlap
@@ -521,7 +522,7 @@ def test_dataflow_pass_on_a_one_rank_group(tmp_path):
     assert out["fixture.gather-blowup"] == [
         ["dataflow.replicated-collective", "all_gather-16x64"]]
     assert out["entries"] == {name: [] for name in out["entries"]}
-    assert len(out["entries"]) == 7
+    assert len(out["entries"]) == 8
     assert out["controls"] == []
     assert out["passes"] == ["dataflow", "kernels", "lint", "controls"]
     assert out["errors"] == []

@@ -100,7 +100,7 @@ def test_metrics_registry_rules():
 
 
 def test_exporter_registry():
-    assert tobs.exporter_names() == ["chrome", "jsonl"]
+    assert tobs.exporter_names() == ["chrome", "jsonl", "prometheus"]
     with pytest.raises(ValueError, match="duplicate exporter name 'jsonl'"):
         tobs.register_exporter("jsonl")(object)
     with pytest.raises(ValueError, match="unknown exporter 'otlp'"):

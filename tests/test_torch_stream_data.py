@@ -130,7 +130,7 @@ def test_checkpoint_round_trip_with_reference_names(tmp_path):
     assert {"['acc']", "['z']", "['fp']", "['phase']", "['nest'][0]",
             "['nest'][1][0]"} == set(manifest)
     assert all("crc32" in e for e in manifest.values())
-    back = restore_pytree(str(tmp_path), 7, tree)
+    back = restore_pytree(str(tmp_path), 7, tree, device="cpu")
     assert torch.equal(back["acc"], tree["acc"])
     assert torch.equal(back["z"], tree["z"])
     assert torch.equal(back["nest"][0], tree["nest"][0])
@@ -147,7 +147,7 @@ def test_checkpoint_crc_mismatch_is_caught(tmp_path):
     raw[-1] ^= 0xFF
     open(leaf, "wb").write(bytes(raw))
     with pytest.raises(ValueError, match="corrupt"):
-        restore_pytree(str(tmp_path), 1, tree)
+        restore_pytree(str(tmp_path), 1, tree, device="cpu")
 
 
 def test_leftover_tmp_is_ignored_and_replaced(tmp_path):
@@ -162,11 +162,26 @@ def test_leftover_tmp_is_ignored_and_replaced(tmp_path):
     assert latest_step(str(tmp_path / "absent")) is None
 
 
+def test_checkpoint_restore_defaults_to_the_card(tmp_path):
+    """Like every entry point of the port, a restore that names no device
+    goes to the card, and raises without one; ``host=True`` needs none."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    tree = {"acc": torch.ones(3, dtype=torch.float64)}
+    save_pytree(str(tmp_path), 4, tree)
+    with pytest.raises(RuntimeError, match="is_available"):
+        restore_pytree(str(tmp_path), 4, tree)
+    with pytest.raises(RuntimeError, match="is_available"):
+        CheckpointManager(str(tmp_path)).restore_latest(tree)
+    assert restore_pytree(str(tmp_path), 4, tree, host=True)["acc"].tolist() \
+        == [1.0, 1.0, 1.0]
+
+
 def test_checkpoint_manager_retention_and_errors(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2)
     for s in range(4):
         mgr.save(s, {"x": torch.full((2,), float(s))})
-    step, tree = mgr.restore_latest({"x": torch.zeros(2)})
+    step, tree = mgr.restore_latest({"x": torch.zeros(2)}, device="cpu")
     assert step == 3 and tree["x"].tolist() == [3.0, 3.0]
     assert sorted(os.listdir(tmp_path)) == ["step_000002", "step_000003"]
     blocker = tmp_path / "file"
