@@ -35,7 +35,8 @@ in order, printing one JSON line per phase:
                  bit); flash at granite's prefill (32 heads, hd 64,
                  S=T=4000, causal) and danube's (32 heads, hd 80,
                  S=T=6144, window 4096), a non-causal, a ragged S != T and
-                 an hd 256 case, q f32 with k/v bf16 and all f32;
+                 an hd 256 case, q f32 with k/v bf16 and all f32, each
+                 also with its lse (o bit-equal, lse against flash_ref's);
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
                  f64 ``A = B0 @ P0`` of 2^16 x 2^14 (the paper's Table row
                  k=400, m=2^16, n=2^14), with the launch counts of its
@@ -147,6 +148,24 @@ in order, printing one JSON line per phase:
   9. trace    -- the main path once more: the sketch and the rest timed
                  apart, then one ``rid`` under ``torch.profiler`` (device
                  time by kernel, device idle share).
+  10. train   -- granite-3-2b at full width and depth (random weights from
+                 a seed, synthetic batches of 2 x 4096 tokens): (a) 5 steps
+                 through ``launch.train.train_loop`` (wall, tokens/s, loss,
+                 grad norm and lr a step, peak memory, 80 flash launches a
+                 step: forward and remat recompute; finite losses and a
+                 positive grad norm gated), one more step under
+                 ``torch.profiler`` (busy and idle share, the flash kernel,
+                 the plain backward, the GEMMs, AdamW), and the attention's
+                 forward and plain backward timed alone at the step's shape
+                 beside SDPA's; (b) one layer's attention (B=1, 32 heads,
+                 S=T=4096) through ``FlashAttention`` against autograd
+                 through flash_ref, k/v f32 and bf16, o bit-equal with and
+                 without lse, lse against flash_ref's; (c) at 2 layers: two
+                 runs bit-equal, a ``fail_at`` run resumed from its
+                 checkpoint bit-equal to the uninterrupted one, RandLR rank
+                 8 over 2 pod groups within 5 % of the dense loss at the
+                 reference test's settings, and at lr 3e-4 cutting the
+                 loss by at least half the dense run's drop.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -159,6 +178,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -169,6 +189,9 @@ from unittest import mock
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
+# Phase train's steps are deterministic (``launch.steps``): cuBLAS reads its
+# workspace setting when the process makes its first GEMM.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 try:
     from repro_torch.configs import PAPER_GRID
@@ -235,6 +258,15 @@ SERVE_BATCH, SERVE_LEN, SERVE_LONG, SERVE_NEW = 4, 4608, (3000, 4000), 16
 CHUNK = 512
 CHUNK_TOL = {"rel_l2": 0.05, "max_abs_over_max": 0.1}
 SWA_LAYERS, SWA_PROMPT, SWA_STEPS = 4, 6144, 16
+# The train phase: granite-3-2b at full width and depth, batch 2 x 4096
+# (train_4k's length), 5 steps; (c) at 2 layers.  Tolerance of the
+# Function's gradients against autograd through flash_ref, relative to the
+# largest entry: f32 k and v 1e-4 (the kernel's o and lse carry its 1e-5,
+# and the backward sums 4096 keys in f32 in another order); bf16 k and v
+# 1e-2 (dk and dv are rounded to bf16 on both sides, a bf16 step apart
+# where they round differently).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SMALL_LAYERS = 5, 2, 4096, 2
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # The stream phase's chunk: 8192 rows (1.07 GB of the main row in f64, 2.1
 # GB of the paper's 64 GB row in c128), a multiple of ACCUM_BLOCK.
 STREAM_CHUNK = 8192
@@ -376,6 +408,13 @@ def main() -> int:
                                      Timeline, overlap_report)
         from repro_torch.benchmarks import bench_stream, bench_trace
         from repro_torch.stream import ArraySource, SpectrumSource, rid_streamed
+        from repro_torch.data import SyntheticConfig, batch_for_step
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.launch.steps import TrainConfig, make_train_step
+        from repro_torch.launch.train import train_loop
+        from repro_torch.kernels.flash import BLOCK_KV, FlashAttention
+        from repro_torch.optim import CompressorConfig
+        from repro_torch.runtime import HostFailure
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -1008,8 +1047,15 @@ def main() -> int:
             got = flash_attention_kernel(q, k, v, causal=causal,
                                          window=window)
             launches = FLASH_LAUNCHES.count - before
-            want = flash_ref(q, k, v, causal=causal, window=window)
+            # With the logsumexp (the training path): o bit-equal, lse
+            # against flash_ref's, relative to its largest entry.
+            got_lse, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                                  window=window,
+                                                  return_lse=True)
+            want, want_lse = flash_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
             err, err_abs = rel_err(got, want), float((got - want).abs().max())
+            lse_err = rel_err(lse, want_lse)
             emit({"phase": "kernels", "kernel": "flash", "case": case,
                   "bh": bh, "s": s, "t": t, "hd": hd, "causal": causal,
                   "window": window, "q_dtype": dname(qdt),
@@ -1017,13 +1063,18 @@ def main() -> int:
                   "live_pairs": bh * live_pairs(s, t, causal, window),
                   "live_block_share": live_block_share(s, t, causal, window),
                   "max_abs_err": err_abs, "rel_err": err,
-                  "rel_tol": FLASH_TOL})
+                  "rel_tol": FLASH_TOL, "lse_rel_err": lse_err,
+                  "o_bit_equal_with_lse": same_bits(got, got_lse)})
             check(err <= FLASH_TOL, f"flash {case} {dname(kvdt)}: rel err "
                   f"{err} > {FLASH_TOL}")
+            check(lse_err <= FLASH_TOL, f"flash {case} {dname(kvdt)}: lse "
+                  f"rel err {lse_err} > {FLASH_TOL}")
+            check(same_bits(got, got_lse), f"flash {case} {dname(kvdt)}: o "
+                  f"changed with lse")
             check(launches == 1, f"flash {case}: {launches} launches")
             if case == "granite prefill" and kvdt == torch.bfloat16:
                 flash_err = err_abs
-            del q, k, v, got, want
+            del q, k, v, got, want, got_lse, lse, want_lse
             torch.cuda.empty_cache()
 
     # ----------------------------------------- 3. main path, f64 gaussian
@@ -2245,28 +2296,47 @@ def main() -> int:
     def readings(fn, kernels: int, reps: int = 20) -> dict:
         """``fn`` (``kernels`` launches a call) timed three ways here:
         ``cuda_ms`` (one round of ``reps`` calls), ``bench_dmma``'s (the
-        least of two rounds), and under ``torch.profiler``, ten calls and
-        then ``reps`` calls, of which the last ``reps * kernels`` device
-        events count (the trace loses its first few events, two to four on
-        an H100): their time a
-        call, and the device span a call (the first one's start to the last
-        one's end), whose excess is gaps between kernels; ``cuda_ms`` once
-        more after the trace; the SM clock, power draw and throttle reasons
-        before and after."""
+        least of two rounds), and under ``torch.profiler``: ten calls in a
+        warmup cycle, then ``reps + 10`` calls in the active cycle, of
+        which the last ``reps * kernels`` device events count: their time
+        a call, and the device span a call (the first one's start to the
+        last one's end), whose excess is gaps between kernels;
+        ``cuda_ms`` once more after the trace; the SM clock, power draw and
+        throttle reasons before and after.  A session's first events are
+        not reliable: without a warmup cycle it loses its first device
+        event once the process has traced a training step
+        (``benchmarks.profiler_probe``; eleven events in one run), and the
+        active cycle's start can gain the warmup's last event or lose its
+        own first; the warmup cycle and the ten calls of margin keep the
+        readings independent of the order of the phases."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
         clock_before = sm_clock()
         smoke_ms = cuda_ms(fn, reps)
         bench_ms = bench_cuda_ms(fn, reps)
+        traced = []
+
+        def keep(prof):
+            # Kernels only: the cycle's ProfilerStep range also shows as a
+            # device span.
+            traced.extend(sorted(
+                (e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("ProfilerStep")))
+
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps + 10):
-                fn()
-            torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=keep) as prof:
+            for n_calls in (10, reps + 10):
+                for _ in range(n_calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        spans = traced
         check(len(spans) >= reps * kernels,
               f"times: the trace recorded {len(spans)} device events")
         spans = spans[-reps * kernels:]
@@ -2453,7 +2523,7 @@ def main() -> int:
 
     # flash at granite's serve shape (the 4000-token prefill: 32 heads, hd
     # 64, causal, q f32 and k/v bf16 as the model passes them); launches
-    # from the serve phase.  Operations: 4 hd per live (q, k) pair (q k^T
+    # from the serve and train phases.  Operations: 4 hd per live (q, k) pair (q k^T
     # and p v), each product two TF32 passes on the tensor cores (q split
     # into hi and lo, bf16 k and v exact); bytes: q, k, v read once, o
     # written once.  The library call is scaled_dot_product_attention on
@@ -2529,6 +2599,287 @@ def main() -> int:
           **{key: copy[key] for key in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}})
     del x
+
+    # ------------- train: granite-3-2b at full width and depth, seq 4096
+    # (a) five steps through train_loop on synthetic batches; the flash
+    # kernel runs forward and again in each block's recompute, its
+    # gradient through FlashAttention's plain backward.
+    cfg = get_config("granite-3-2b")
+    tcfg = TrainConfig(peak_lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, tcfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     steps=TRAIN_STEPS, log=lambda *a: None, device=dev)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = read_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps_out = [dict(h, tokens_per_s=tokens / h["seconds"]) for h in hist]
+    # One warm step more under torch.profiler: device busy and idle share,
+    # device time by kernel, and by part: the flash kernel, the plain
+    # backward (FlashAttention's node), the GEMMs, AdamW (a profiler range
+    # around optim.adamw_update).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    state = out["state"]
+    del out
+    step_fn = make_train_step(cfg, tcfg)
+    data_cfg = SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=SEED)
+    batch = batch_for_step(data_cfg, TRAIN_STEPS, device=dev)
+    adamw_plain = steps_mod.adamw_update
+
+    def adamw_ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return adamw_plain(*a, **kw)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(steps_mod, "adamw_update", adamw_ranged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    # Kernels only: the adamw_update range also shows as a device span.
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in averages
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and e.key != "adamw_update"
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in kernels)
+
+    def under(name) -> float:
+        return max([e.device_time_total / 1e3 for e in averages
+                    if e.key.endswith(name)], default=0.0)
+
+    gemm = ("gemm", "xmma", "cutlass", "nvjet")
+    parts = {"flash_fwd_ms": sum(r[1] for r in kernels
+                                 if "flash_fwd_kernel" in r[0]),
+             "flash_plain_backward_ms": under("FlashAttentionBackward"),
+             "gemm_ms": sum(r[1] for r in kernels
+                            if any(w in r[0] for w in gemm)),
+             "adamw_span_ms": under("adamw_update")}
+    del state, m, batch, step_fn
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "d_ff": cfg.d_ff, "padded_vocab": cfg.padded_vocab,
+          "params": cfg.param_count(), "remat": cfg.remat,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps_out,
+          "wall_s": train_wall, "max_memory_allocated": train_peak,
+          "launches": train_launches,
+          "flash_launches_per_step": train_launches["flash"] / TRAIN_STEPS,
+          "profiled_step": {"traced_wall_s": traced_wall,
+                            "device_busy_ms": busy_ms,
+                            "device_idle_share": 1 - busy_ms
+                            / (1e3 * traced_wall),
+                            **parts,
+                            "top_kernels": [{"name": k[:80], "ms": ms,
+                                             "count": c}
+                                            for k, ms, c in kernels[:15]]}})
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          f"train: losses {[h['loss'] for h in hist]}")
+    check(all(h["grad_norm"] > 0 and math.isfinite(h["grad_norm"])
+              for h in hist), f"train: grad norms "
+          f"{[h['grad_norm'] for h in hist]}")
+    check(train_launches["flash"] == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"train: flash launched {train_launches['flash']} times, expected "
+          f"{2 * cfg.n_layers} a step (forward and recompute)")
+    check(all(v == 0 for name, v in train_launches.items()
+              if name != "flash"), f"train: other kernels {train_launches}")
+    check(busy_ms > 0, "train: no device time recorded")
+
+    # The attention's forward and plain backward at the train step's shape
+    # (B=2, 32 heads, S=T=4096, hd 64; q f32, k and v bf16), timed alone,
+    # beside the library's scaled_dot_product_attention forward and
+    # backward in f32.  A step runs it once a layer.
+    bh = TRAIN_BATCH * cfg.n_heads
+    gen_t = torch.Generator(device=dev)
+    gen_t.manual_seed(SEED + 24)
+    qf = (torch.randn((bh, TRAIN_SEQ, cfg.hd), generator=gen_t, device=dev)
+          * cfg.hd ** -0.5).requires_grad_(True)
+    kf, vf = (torch.randn((bh, TRAIN_SEQ, cfg.hd), generator=gen_t,
+                          device=dev).to(torch.bfloat16).requires_grad_(True)
+              for _ in range(2))
+    dout = torch.randn((bh, TRAIN_SEQ, cfg.hd), generator=gen_t, device=dev)
+    o = FlashAttention.apply(qf, kf, vf, True, None, BLOCK_KV)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qf, kf, vf), dout, retain_graph=True), 3)
+    fwd_ms = cuda_ms(lambda: FlashAttention.apply(qf, kf, vf, True, None,
+                                                  BLOCK_KV), 5)
+    q4, k4, v4 = (x.detach().float()[None].requires_grad_(True)
+                  for x in (qf, kf, vf))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        scale=1.0)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), dout[None], retain_graph=True), 3)
+    pairs = bh * live_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    all_pairs = bh * TRAIN_SEQ * TRAIN_SEQ
+    # The plain backward: five products of 2 hd flop a (q, k) pair, over
+    # every pair (masked blocks included), in f32 without tensor cores.
+    bwd_flops = 10.0 * cfg.hd * all_pairs
+    step_mean_s = sum(h["seconds"] for h in hist[1:]) / (len(hist) - 1)
+    emit({"phase": "train", "part": "attention timing", "bh": bh,
+          "s": TRAIN_SEQ, "hd": cfg.hd, "q_dtype": "float32",
+          "kv_dtype": "bfloat16", "flash_fwd_lse_ms": fwd_ms,
+          "plain_backward_ms": bwd_ms,
+          "plain_backward_flops": bwd_flops,
+          "plain_backward_tflops": bwd_flops / bwd_ms / 1e9,
+          "plain_backward_ffma_bound_ms": 1e3 * bwd_flops / PEAK_F32_FLOPS,
+          "live_pairs": pairs, "all_pairs": all_pairs,
+          "live_backward_ffma_bound_ms": 1e3 * 10.0 * cfg.hd * pairs
+          / PEAK_F32_FLOPS,
+          "sdpa_f32_backward_ms": sdpa_bwd_ms,
+          "plain_backward_ms_per_step": bwd_ms * cfg.n_layers,
+          "plain_backward_share_of_step": bwd_ms * cfg.n_layers / 1e3
+          / step_mean_s, "warm_step_mean_s": step_mean_s})
+    del qf, kf, vf, dout, o, q4, k4, v4, o4
+    torch.cuda.empty_cache()
+
+    # (b) One layer's attention (B=1, 32 heads, S=T=4096, hd 64) through
+    # the kernel's Function against autograd through flash_ref (dense, 2.1
+    # GB of scores), k and v in f32 and in bf16 (the model's); the kernel's
+    # o bit-equal with and without lse, and its lse against flash_ref's.
+    grad_check = {}
+    for kvdt in (torch.float32, torch.bfloat16):
+        gen_t.manual_seed(SEED + 25)
+        q1 = torch.randn((cfg.n_heads, TRAIN_SEQ, cfg.hd), generator=gen_t,
+                         device=dev) * cfg.hd ** -0.5
+        k1, v1 = (torch.randn((cfg.n_heads, TRAIN_SEQ, cfg.hd),
+                              generator=gen_t, device=dev).to(kvdt)
+                  for _ in range(2))
+        d1 = torch.randn((cfg.n_heads, TRAIN_SEQ, cfg.hd), generator=gen_t,
+                         device=dev)
+        res = []
+        for fn in (lambda a, b, c: FlashAttention.apply(a, b, c, True, None,
+                                                        BLOCK_KV),
+                   lambda a, b, c: flash_ref(a, b, c)):
+            a, b, c = (x.clone().requires_grad_(True) for x in (q1, k1, v1))
+            out1 = fn(a, b, c)
+            res.append([out1.detach()] + list(torch.autograd.grad(
+                out1, (a, b, c), d1)))
+            del a, b, c, out1
+        errs = {name: rel_err(g.float(), w.float())
+                for name, g, w in zip(("o", "dq", "dk", "dv"), *res)}
+        o_plain = flash_attention_kernel(q1, k1, v1)
+        o_lse, lse = flash_attention_kernel(q1, k1, v1, return_lse=True)
+        _, lse2 = flash_attention_kernel(q1, k1, v1, return_lse=True)
+        _, lse_ref = flash_ref(q1, k1, v1, return_lse=True)
+        grad_check[dname(kvdt)] = {
+            "rel_err": errs, "tol": TRAIN_GRAD_TOL[dname(kvdt)],
+            "o_bit_equal_with_lse": same_bits(o_plain, o_lse),
+            "lse_repeat_bit_equal": same_bits(lse, lse2),
+            "lse_rel_err": rel_err(lse, lse_ref)}
+        del q1, k1, v1, d1, res, o_plain, o_lse, lse, lse2, lse_ref
+        torch.cuda.empty_cache()
+    emit({"phase": "train", "part": "b", "bh": cfg.n_heads, "s": TRAIN_SEQ,
+          "t": TRAIN_SEQ, "hd": cfg.hd, "causal": True, "q_dtype": "float32",
+          "backward_block": BLOCK_KV, "checks": grad_check,
+          "lse_tol": FLASH_TOL})
+    for name, c in grad_check.items():
+        check(all(e <= c["tol"] for e in c["rel_err"].values()),
+              f"train (b) {name}: gradients {c['rel_err']} beyond {c['tol']}")
+        check(c["o_bit_equal_with_lse"] and c["lse_repeat_bit_equal"],
+              f"train (b) {name}: o or lse not bit-equal")
+        check(c["lse_rel_err"] <= FLASH_TOL,
+              f"train (b) {name}: lse rel err {c['lse_rel_err']}")
+
+    # (c) Two layers at full width, seq 4096: two runs from one seed bit
+    # for bit; a run failed at step 2 and resumed from its checkpoint,
+    # bit-equal to the uninterrupted run; RandLR rank 8 over 2 pod groups
+    # against the dense loss after 4 steps, gated as the reference's
+    # test_train_step_sharded_with_compression gates it (TrainConfig()'s
+    # defaults: warmup 100, so lr <= 9e-6 here: within 5 % of the dense
+    # loss), and at the train phase's lr (peak 3e-4 after 1 warmup step),
+    # where the loss moves: the compressed run's drop over its 3 updates
+    # is at least half the dense run's (the compressed step equals the
+    # reference's on the same Omega, tests/test_torch_train.py; a step
+    # that applied no gradient would drop nothing).
+    c2 = cfg.replace(n_layers=TRAIN_SMALL_LAYERS)
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              log=lambda *a: None, device=dev)
+    t3 = TrainConfig(peak_lr=3e-4, warmup_steps=1, total_steps=3)
+    runs = [train_loop(c2, t3, steps=3, **kw) for _ in range(2)]
+    params_equal = all(torch.equal(p, q) for p, q in zip(
+        runs[0]["state"].params.parameters(),
+        runs[1]["state"].params.parameters()))
+    losses_equal = runs[0]["losses"] == runs[1]["losses"]
+    del runs[1]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt:
+        failed = False
+        try:
+            train_loop(c2, t3, steps=3, ckpt_dir=ckpt, ckpt_every=2,
+                       fail_at=2, **kw)
+        except HostFailure:
+            failed = True
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = train_loop(c2, t3, steps=3, ckpt_dir=ckpt, ckpt_every=2,
+                             **kw)
+        resume_s = time.perf_counter() - t0
+    resume_equal = (resumed["losses"] == runs[0]["losses"][2:]
+                    and all(torch.equal(p, q) for p, q in zip(
+                        runs[0]["state"].params.parameters(),
+                        resumed["state"].params.parameters())))
+    uninterrupted = runs[0]["losses"]
+    del runs, resumed
+    torch.cuda.empty_cache()
+    compressed = {}
+    for name, t4 in (("reference_defaults", TrainConfig()),
+                     ("lr_3e-4", TrainConfig(peak_lr=3e-4, warmup_steps=1,
+                                             total_steps=4))):
+        dense = train_loop(c2, t4, steps=4, **kw)
+        torch.cuda.empty_cache()
+        rcomp = train_loop(
+            c2, t4._replace(compress=CompressorConfig(rank=8)), steps=4,
+            npods=2, **kw)
+        torch.cuda.empty_cache()
+        d, r = dense["final"], rcomp["final"]
+        drop = (dense["losses"][0] - d["loss"], rcomp["losses"][0] - r["loss"])
+        compressed[name] = {
+            "dense_loss": d["loss"], "compressed_loss": r["loss"],
+            "compressed_grad_norm": r["grad_norm"],
+            "compress_ratio": r["compress_ratio"],
+            "compressed_vs_dense": abs(d["loss"] - r["loss"]) / d["loss"],
+            "dense_drop": drop[0], "compressed_drop": drop[1],
+            "drop_share": drop[1] / drop[0] if drop[0] > 0 else None}
+        del dense, rcomp
+        torch.cuda.empty_cache()
+    gated = compressed["reference_defaults"]
+    moving = compressed["lr_3e-4"]
+    emit({"phase": "train", "part": "c", "n_layers": TRAIN_SMALL_LAYERS,
+          "reduced": f"depth cut from {cfg.n_layers} to "
+                     f"{TRAIN_SMALL_LAYERS} layers (run time)",
+          "losses": uninterrupted, "replay_losses_equal": losses_equal,
+          "replay_params_equal": params_equal,
+          "fail_at_raised": failed, "resume_bit_equal": resume_equal,
+          "resume_s": resume_s, "rank8_npods2": compressed,
+          "compressed_tol": 0.05, "drop_share_min": 0.5})
+    check(losses_equal and params_equal, "train (c): two runs differ")
+    check(failed, "train (c): fail_at did not raise HostFailure")
+    check(resume_equal, "train (c): the resumed run is not bit-equal")
+    check(gated["compressed_vs_dense"] < 0.05,
+          f"train (c): compressed vs dense {gated}")
+    check(moving["dense_drop"] > 0 and moving["compressed_drop"]
+          >= 0.5 * moving["dense_drop"],
+          f"train (c): compressed drop at lr 3e-4 {moving}")
+    check(all(math.isfinite(c["compressed_grad_norm"])
+              and c["compressed_grad_norm"] > 0
+              for c in compressed.values()),
+          "train (c): compressed grad norm")
+
+    flash["launches"] += train_launches["flash"]
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
                       trisolve, proj, deflate, flash, copy]})

@@ -20,7 +20,12 @@
 //     in blocks that hold a masked pair; nothing is padded;
 //   * the row max and sum by warp shuffles over the 4 lanes of a quad; m,
 //     the lanes' partial sums of p and the (16, hd) accumulator of a warp
-//     stay in registers; the output is acc / max(l, 1e-30) in q's dtype.
+//     stay in registers; the output is acc / max(l, 1e-30) in q's dtype;
+//   * where the caller passes an lse pointer (the training path), lane 0 of
+//     each quad also writes its row's logsumexp L = m + log(max(l, 1e-30))
+//     of the scaled scores, in f32: the reference's L (repro/models/
+//     attention.py, _flash_fwd_scan), which its backward recomputes each
+//     probability block from.  The output's arithmetic does not change.
 //
 // Both products run on the tensor cores,
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, in f32 accuracy by
@@ -166,8 +171,9 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
 template <class TQ, class TKV, int kHD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                 const TKV* __restrict__ v, TQ* __restrict__ o, int64_t S,
-                 int64_t T, int hd, int causal, int64_t window) {
+                 const TKV* __restrict__ v, TQ* __restrict__ o,
+                 float* __restrict__ lse, int64_t S, int64_t T, int hd, int causal,
+                 int64_t window) {
   constexpr int BK = block_kv<kHD>();
   constexpr int NS = BK / 8;               // key n-tiles of q k^T, k-steps of p v
   constexpr int NO = kHD / 8;              // n-tiles of the accumulator
@@ -412,6 +418,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     if (qrow[h] >= S) continue;
+    if (lse != nullptr && t == 0) lse[bh * S + qrow[h]] = m[h] + logf(fmaxf(l, 1e-30f));
 #pragma unroll
     for (int nt = 0; nt < NO; ++nt) {
       if (nt >= nsteps) break;
@@ -422,35 +429,39 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 }
 
 template <class TQ, class TKV, int kHD>
-int launch_flash_hd(const void* q, const void* k, const void* v, void* o, int64_t bh,
-                    int64_t s, int64_t t, int hd, int causal, int64_t window,
+int launch_flash_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+                    int64_t bh, int64_t s, int64_t t, int hd, int causal, int64_t window,
                     cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((s + kBQ - 1) / kBQ), static_cast<unsigned>(bh));
   return static_cast<int>(repro::launch(
       flash_fwd_kernel<TQ, TKV, kHD>, grid, dim3(kThreads), flash_smem<TQ, TKV, kHD>(hd),
       stream, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(o), s, t, hd, causal, window));
+      static_cast<const TKV*>(v), static_cast<TQ*>(o), lse, s, t, hd, causal, window));
 }
 
 template <class TQ, class TKV>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int64_t bh,
-                 int64_t s, int64_t t, int hd, int causal, int64_t window,
+int launch_flash(const void* q, const void* k, const void* v, void* o, float* lse,
+                 int64_t bh, int64_t s, int64_t t, int hd, int causal, int64_t window,
                  cudaStream_t stream) {
   if (hd <= 64)
-    return launch_flash_hd<TQ, TKV, 64>(q, k, v, o, bh, s, t, hd, causal, window, stream);
+    return launch_flash_hd<TQ, TKV, 64>(q, k, v, o, lse, bh, s, t, hd, causal, window,
+                                        stream);
   if (hd <= 128)
-    return launch_flash_hd<TQ, TKV, 128>(q, k, v, o, bh, s, t, hd, causal, window, stream);
-  return launch_flash_hd<TQ, TKV, 256>(q, k, v, o, bh, s, t, hd, causal, window, stream);
+    return launch_flash_hd<TQ, TKV, 128>(q, k, v, o, lse, bh, s, t, hd, causal, window,
+                                         stream);
+  return launch_flash_hd<TQ, TKV, 256>(q, k, v, o, lse, bh, s, t, hd, causal, window,
+                                       stream);
 }
 
 }  // namespace
 
 // q (bh, s, hd) of type q_dtype, k and v (bh, t, hd) of type kv_dtype, o
-// (bh, s, hd) of type q_dtype; every pointer 16-byte aligned.  window < 0
+// (bh, s, hd) of type q_dtype; every pointer 16-byte aligned.  lse, where
+// not null, is (bh, s) f32 and receives each row's logsumexp.  window < 0
 // means no window.
 extern "C" int repro_flash_attention(int q_dtype, int kv_dtype, const void* q,
                                      const void* k, const void* v, void* o,
-                                     int64_t bh, int64_t s, int64_t t,
+                                     void* lse, int64_t bh, int64_t s, int64_t t,
                                      int64_t hd, int causal, int64_t window,
                                      void* stream) {
   if (bh < 1 || bh > 65535 || s < 1 || t < 1 || hd < 8 || hd > 256 ||
@@ -458,16 +469,17 @@ extern "C" int repro_flash_attention(int q_dtype, int kv_dtype, const void* q,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(hd);
+  float* l = static_cast<float*>(lse);
   if (q_dtype == kFlashF32 && kv_dtype == kFlashF32)
-    return launch_flash<float, float>(q, k, v, o, bh, s, t, h, causal, window, st);
+    return launch_flash<float, float>(q, k, v, o, l, bh, s, t, h, causal, window, st);
   if (q_dtype == kFlashF32 && kv_dtype == kFlashBF16)
-    return launch_flash<float, __nv_bfloat16>(q, k, v, o, bh, s, t, h, causal,
-                                              window, st);
+    return launch_flash<float, __nv_bfloat16>(q, k, v, o, l, bh, s, t, h,
+                                              causal, window, st);
   if (q_dtype == kFlashBF16 && kv_dtype == kFlashF32)
-    return launch_flash<__nv_bfloat16, float>(q, k, v, o, bh, s, t, h, causal,
-                                              window, st);
+    return launch_flash<__nv_bfloat16, float>(q, k, v, o, l, bh, s, t, h,
+                                              causal, window, st);
   if (q_dtype == kFlashBF16 && kv_dtype == kFlashBF16)
-    return launch_flash<__nv_bfloat16, __nv_bfloat16>(q, k, v, o, bh, s, t, h,
-                                                      causal, window, st);
+    return launch_flash<__nv_bfloat16, __nv_bfloat16>(q, k, v, o, l, bh, s, t,
+                                                      h, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-"""Known-spectrum test matrices for the eq. (3) verification grid
-(counterpart of the matrix half of ``repro.data.synthetic``).
+"""Known-spectrum test matrices for the eq. (3) verification grid, and the
+LM stack's token generator (counterpart of ``repro.data.synthetic``).
 
 ``spectrum_sigmas`` / ``spectrum_matrix`` build matrices ``A = U S V^H``
 with an exactly known singular spectrum, so eq. (3), which bounds
@@ -29,11 +29,19 @@ hand.  Its random parts follow the port's own rules: the frequencies and
 (so the matrix is a function of the seed, whatever the device), and the
 row diagonal ``D`` is a splitmix64 hash of ``(seed, global row index)``
 (``row_diagonal``), evaluated vectorised on the rows' device.
+
+``SyntheticConfig`` / ``batch_for_step`` / ``make_batch_iterator`` are the
+training data: a learnable periodic token pattern with noise, each batch a
+pure function of ``(seed, step, host)`` (drawn on the host from a CPU
+generator seeded with ``block_seed(block_seed(seed, step), host)``, the
+counterpart of the reference's ``fold_in``), so a run resumed at step s
+replays the same batches on any device.  The pattern and the noise are the
+reference's; the random bits are Philox's, not threefry's.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,7 +50,8 @@ from ..core.rng import as_generator, block_seed, check_device, seed_of
 
 __all__ = ["SPECTRA", "DTYPE_FLOORS", "spectrum_sigmas", "spectrum_matrix",
            "SpectrumFactors", "spectrum_factors", "spectrum_rows",
-           "row_diagonal", "spectrum_id_error"]
+           "row_diagonal", "spectrum_id_error", "SyntheticConfig",
+           "batch_for_step", "make_batch_iterator"]
 
 SPECTRA = ("fast_decay", "cliff", "noisy_tail")
 
@@ -257,3 +266,53 @@ def spectrum_id_error(f: SpectrumFactors, J: torch.Tensor,
     E = M - M[:, J.to(dev)] @ P.to(dev, M.dtype)
     # ||E||_2 = ||R||_2 for E^H = Q R: an r x r SVD in place of r x n.
     return float(torch.linalg.svdvals(torch.linalg.qr(E.mH, mode="r").R)[0])
+
+
+# ------------------------------------------------------- LM training data
+
+class SyntheticConfig(NamedTuple):
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    noise: float = 0.05          # fraction of tokens replaced with noise
+    period: int = 17             # base period of the learnable pattern
+
+
+def _pattern_tokens(gen: torch.Generator, cfg: SyntheticConfig,
+                    batch: int) -> torch.Tensor:
+    """(batch, seq_len + 1) int32 tokens on the host: per-row phase +
+    periodic ramp + noise, drawn from ``gen`` (a CPU generator)."""
+    S = cfg.seq_len + 1
+    phase = torch.randint(0, cfg.period, (batch, 1), generator=gen)
+    pos = torch.arange(S)[None, :]
+    base = (phase * 31 + pos * 7) % (cfg.period * 13)
+    toks = base % cfg.vocab_size
+    noise_mask = torch.rand((batch, S), generator=gen) < cfg.noise
+    noise_val = torch.randint(0, cfg.vocab_size, (batch, S), generator=gen)
+    return torch.where(noise_mask, noise_val, toks).to(torch.int32)
+
+
+def batch_for_step(cfg: SyntheticConfig, step: int, *, host: int = 0,
+                   n_hosts: int = 1, device="cuda") -> dict:
+    """The batch (or this host's shard of it) for global step ``step``:
+    ``tokens`` and ``labels`` (the tokens shifted by one), int32 on
+    ``device``."""
+    if cfg.global_batch % n_hosts:
+        raise ValueError(f"global_batch={cfg.global_batch} does not split "
+                         f"over {n_hosts} hosts")
+    dev = check_device(device)
+    gen = torch.Generator()
+    gen.manual_seed(block_seed(block_seed(cfg.seed, step), host))
+    toks = _pattern_tokens(gen, cfg, cfg.global_batch // n_hosts).to(dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def make_batch_iterator(cfg: SyntheticConfig, *, start_step: int = 0,
+                        host: int = 0, n_hosts: int = 1,
+                        device="cuda") -> Iterator[dict]:
+    step = start_step
+    while True:
+        yield batch_for_step(cfg, step, host=host, n_hosts=n_hosts,
+                             device=device)
+        step += 1

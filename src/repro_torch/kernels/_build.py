@@ -69,8 +69,9 @@ _SIGNATURES = {
     "repro_project_out": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     # dtype, qp, z, o, w, l, b, n, stream
     "repro_panel_deflate": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _P],
-    # q dtype, k/v dtype, q, k, v, o, bh, s, t, hd, causal, window, stream
-    "repro_flash_attention": [_I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
+    # q dtype, k/v dtype, q, k, v, o, lse (nullable), bh, s, t, hd, causal,
+    # window, stream
+    "repro_flash_attention": [_I, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I64, _I, _I64, _P],
 }
 

@@ -1,3 +1,3 @@
-from .ops import flash_attention
+from .ops import BLOCK_KV, FlashAttention, flash_attention
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "FlashAttention", "BLOCK_KV"]

@@ -9,6 +9,9 @@ loaded.  q is f32 or bf16, k and v one of the two (the model passes f32 q
 and bf16 k, v).  Both products run on the tensor cores in TF32 with f32
 operands split into hi + lo (bf16 operands are exact in TF32), the small
 terms first, sums in f32.  S and T are masked in the kernel, not padded.
+With ``return_lse`` it also writes each row's logsumexp of the scaled
+scores (f32), from which the training path's backward recomputes the
+probabilities (``ops.FlashAttention``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from .._build import check_status, load_library
 from ..common import Launch, LaunchCounter, cdiv, type_name
+from .ref import NEG_INF
 
 __all__ = ["flash_attention_kernel", "flash_launch", "flash_smem", "LAUNCHES",
            "FLASH_DTYPES", "MAX_HD"]
@@ -65,7 +69,7 @@ def flash_launch(q_dtype: torch.dtype, kv_dtype: torch.dtype, bh: int,
                   (THREADS, 1, 1), flash_smem(q_dtype, kv_dtype, hd),
                   "repro_flash_attention",
                   (FLASH_DTYPES.index(q_dtype), FLASH_DTYPES.index(kv_dtype),
-                   None, None, None, None, bh, s, t, hd, int(causal),
+                   None, None, None, None, None, bh, s, t, hd, int(causal),
                    -1 if window is None else int(window), None))
 
 
@@ -100,25 +104,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           return_lse: bool = False):
     """Launch the kernel: ``q`` (BH, S, hd) already scaled, ``k`` and ``v``
     (BH, T, hd), contiguous CUDA tensors.  Returns (BH, S, hd) in q's
-    dtype; does not synchronize."""
+    dtype, and with ``return_lse`` also the rows' logsumexp (BH, S) in f32;
+    does not synchronize."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash: window={window}; need None or >= 1")
     o = torch.empty_like(q)
     bh, s, hd = q.shape
     t = k.shape[1]
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if s == 0 or t == 0:
-        return o.zero_()
+        o.zero_()
+        if lse is not None:
+            lse.fill_(NEG_INF)
+        return (o, lse) if return_lse else o
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.repro_flash_attention(
             FLASH_DTYPES.index(q.dtype), FLASH_DTYPES.index(k.dtype),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, t,
-            hd, int(causal), -1 if window is None else int(window), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, s, t, hd,
+            int(causal), -1 if window is None else int(window), stream)
     check_status("flash", rc)
     LAUNCHES.add()
-    return o
+    return (o, lse) if return_lse else o

@@ -1,2 +1,2 @@
-"""Entry points of the port (counterpart of ``repro.launch``): so far the
-serving driver."""
+"""Entry points of the port (counterpart of ``repro.launch``): serving,
+and the training step and loop."""

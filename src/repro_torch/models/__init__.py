@@ -1,13 +1,15 @@
 """The LM stack's models (counterpart of ``repro.models``): so far the dense
-attention-only path that granite-3-2b and h2o-danube-1.8b run."""
+attention-only path that granite-3-2b and h2o-danube-1.8b run, for serving
+and training."""
 from .config import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_caches,
-                          init_params, params_from_jax, params_to_numpy,
-                          prefill, prefill_chunk, supports_chunked_prefill)
+                          init_params, loss_fn, params_from_jax,
+                          params_to_numpy, prefill, prefill_chunk,
+                          supports_chunked_prefill)
 
 __all__ = [
     "ModelConfig", "ATTN", "MAMBA", "MLSTM", "SLSTM", "Transformer",
-    "init_params", "forward", "prefill", "prefill_chunk",
+    "init_params", "forward", "loss_fn", "prefill", "prefill_chunk",
     "supports_chunked_prefill", "decode_step", "init_caches",
     "params_from_jax", "params_to_numpy",
 ]

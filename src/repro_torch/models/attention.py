@@ -6,6 +6,8 @@
   * causal / non-causal;
   * sequences longer than ``BLOCKWISE_THRESHOLD`` go through the flash
     kernel (``kernels.flash``), shorter ones through the dense masked path;
+    the flash op carries the reference's hand-written VJP
+    (``kernels.flash.FlashAttention``);
   * decode against a pre-allocated KV cache (one token per step, a ring
     buffer under a sliding window) and chunked prefill (``attention_extend``).
 
@@ -153,11 +155,21 @@ def _attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention: q (B, S, H, hd); k/v (B, T, H, hd), KV already
     repeated to full heads.  Returns (B, S, H*hd) in f32.
 
-    The reference scans kv blocks with an online softmax in jnp; here the
-    forward is the flash op, run by the hand-written kernel on the card.
-    q goes in as f32 and unscaled: the op scales it by hd^-0.5 in f32, the
-    reference's ``q.astype(f32) * hd ** -0.5``, once."""
+    The reference scans kv blocks with an online softmax in jnp under a
+    custom VJP; here it is the flash op, run by the hand-written kernel on
+    the card, with the same VJP (its backward in kv blocks of
+    ``kernels.flash.BLOCK_KV``).  q goes in as f32 and unscaled: the op
+    scales it by hd^-0.5 in f32, the reference's ``q.astype(f32) *
+    hd ** -0.5``, once."""
     return flash_attention(q.float(), k, v, causal=causal, window=window)
+
+
+def _repeat_kv(t: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, KV*g, hd), each kv head ``g`` times in a
+    row (``repeat_interleave`` on dim 2) as a broadcast, whose gradient is
+    a sum over the copies rather than an index_add with atomics."""
+    B, T, KV, hd = t.shape
+    return t[:, :, :, None].expand(B, T, KV, g, hd).reshape(B, T, KV * g, hd)
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -173,8 +185,7 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     T = k.shape[1]
     if T > BLOCKWISE_THRESHOLD:
         g = cfg.n_heads // cfg.n_kv_heads
-        kr = torch.repeat_interleave(k, g, dim=2)        # KV -> H heads
-        vr = torch.repeat_interleave(v, g, dim=2)
+        kr, vr = _repeat_kv(k, g), _repeat_kv(v, g)     # KV -> H heads
         out = _attention_blockwise(q, kr, vr, causal=causal,
                                    window=cfg.sliding_window)
         return out.to(cdt) @ p.wo.to(cdt)

@@ -9,9 +9,10 @@ Parameter names follow the reference's tree (``embed.tok``,
 ``final_norm.scale``, ``lm_head``), so ``params_from_jax`` and
 ``params_to_numpy`` carry weights across by name.
 
-Public surface (the serving path):
+Public surface:
   init_params                       -- random init from a seed or generator
   forward                           -- logits over a full sequence
+  loss_fn                           -- next-token CE (+ z-loss) for training
   prefill / prefill_chunk / decode_step -- with per-layer KV caches
   init_caches, supports_chunked_prefill
   params_from_jax / params_to_numpy -- the reference's tree <-> the module
@@ -21,6 +22,12 @@ Mamba and xLSTM mixers, MoE FFNs, the encoder-decoder (whisper) and vision
 ``NotImplementedError`` here.  The serving functions run under
 ``torch.inference_mode``; ``prefill_chunk`` and ``decode_step`` write into
 the caches they are given, in place, and return them.
+
+Parameters are created with ``requires_grad=False``: serving needs no
+graph.  Training turns them on (``launch.steps.init_train_state``);
+``forward`` and ``loss_fn`` then build the graph, with each block
+recomputed in the backward under ``cfg.remat`` (the reference's
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.rng import as_generator, check_device
 from . import attention as attn_mod
@@ -39,9 +47,14 @@ from .norms import RMSNorm, rmsnorm
 from .rope import rope_cos_sin, text_positions
 
 __all__ = ["Block", "Transformer", "MoEAux", "init_params", "forward",
+           "loss_fn", "MOE_AUX_COEF", "Z_LOSS_COEF",
            "embed_tokens", "lm_logits", "init_caches", "prefill",
            "supports_chunked_prefill", "prefill_chunk", "decode_step",
            "params_from_jax", "params_to_numpy", "check_supported"]
+
+
+MOE_AUX_COEF = 0.01
+Z_LOSS_COEF = 1e-4
 
 
 class MoEAux(NamedTuple):
@@ -165,17 +178,54 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, MoEAux]:
     """Full-sequence logits (B, S, padded vocab) in f32, and the auxiliary
-    losses (zero: no MoE)."""
+    losses (zero: no MoE).  With gradients on and ``cfg.remat``, each block
+    keeps only its input and is recomputed in the backward (the
+    reference's per-superblock ``jax.checkpoint``; its sqrt grouping is a
+    memory layout of the scan, not arithmetic).  The recompute gives the
+    first pass's bits: the flash kernel sums in a fixed order."""
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     if positions is None:
         positions = text_positions(B, S, device=tokens.device)
     cos, sin = _rope_tables(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in params.blocks:
-        x = _block_forward(cfg, bp, x, cos, sin)
+        if remat:
+            x = checkpoint(_block_forward, cfg, bp, x, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = _block_forward(cfg, bp, x, cos, sin)
     x = _norm(cfg, params.final_norm, x)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(params, cfg, x), MoEAux(zero, zero)
+
+
+# ------------------------------------------------------------------- loss
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token CE with ignore-index -1, plus MoE aux and z-loss (the
+    reference's ``loss_fn``).  ``batch``: ``tokens`` and ``labels`` (B, S),
+    optionally ``positions``.  Returns (total loss, metrics), scalars in
+    f32."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          positions=batch.get("positions"))
+    labels = batch["labels"]
+    # The gold logits are a gather of one entry a row, so its backward adds
+    # once into each place it writes: no two adds meet.
+    mask = (labels >= 0).float()
+    lab = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    ce_loss = ce.sum() / denom
+    z_loss = Z_LOSS_COEF * ((lse * mask) ** 2).sum() / denom
+    total = ce_loss + z_loss + MOE_AUX_COEF * aux.load_balance_loss
+    metrics = {"loss": ce_loss, "z_loss": z_loss,
+               "moe_lb": aux.load_balance_loss,
+               "moe_drop": aux.dropped_fraction, "total_loss": total}
+    return total, metrics
 
 
 # ----------------------------------------------------------------- caches

@@ -11,6 +11,7 @@ This file imports neither jax nor the reference package, so it also runs
 where JAX is not installed.
 """
 import math
+import os
 
 import pytest
 import torch
@@ -45,6 +46,11 @@ from repro_torch.kernels.tsolve import tsolve
 from repro_torch.kernels.tsolve.kernel import LAUNCHES as TSOLVE_LAUNCHES
 from repro_torch.kernels.tsolve.ref import tsolve_ref
 from torch_ranks import failures, run_ranks
+
+# The train step is deterministic on the card (``launch.steps``): cuBLAS
+# reads its workspace setting when the process makes its first GEMM, so it
+# is set here, at collection, before any test runs one.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
 # Relative to the largest entry of the plain output: the kernel and the
@@ -1113,6 +1119,94 @@ def test_cuda_flash_ops_never_reach_the_plain_version(monkeypatch):
         ops.flash_attention(q.half(), kv, kv)
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.flash_attention(q[..., :20], kv[..., :20], kv[..., :20])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", FLASH_DTYPES)
+@pytest.mark.parametrize("bh,s,t,hd,causal,window", FLASH_CASES[:5])
+def test_cuda_flash_lse_matches_plain_and_keeps_o(bh, s, t, hd, causal,
+                                                  window, qdt, kvdt):
+    """With ``return_lse`` the kernel's o keeps its bits, and its lse is
+    ``flash_ref``'s to 1e-5 of the largest entry (f32 in both; the
+    kernel's online max and sum against a dense logsumexp)."""
+    from repro_torch.kernels.flash.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash.ref import flash_ref
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(bh * s + hd + 1)
+    q = (torch.randn((bh, s, hd), generator=gen, device=dev) * hd ** -0.5).to(qdt)
+    k = torch.randn((bh, t, hd), generator=gen, device=dev).to(kvdt)
+    v = torch.randn((bh, t, hd), generator=gen, device=dev).to(kvdt)
+    o = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    o2, lse = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    assert torch.equal(o.view(torch.int16 if qdt == torch.bfloat16 else torch.int32),
+                       o2.view(torch.int16 if qdt == torch.bfloat16 else torch.int32))
+    _, want = flash_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (bh, s)
+    assert _rel(lse, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt,tol", [(torch.float32, 1e-4),
+                                      (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, None)])
+def test_cuda_flash_function_grads_match_autograd_through_plain(causal, window,
+                                                                kvdt, tol):
+    """``FlashAttention`` (the kernel forward with lse, the plain backward
+    in kv blocks of 128, ragged T) against autograd through ``flash_ref``.
+    Tolerance relative to the largest entry: 1e-4 with f32 k and v (the
+    kernel's 1e-5, then f32 sums over the keys in another order), 1e-2
+    with bf16 k and v (dk and dv rounded to bf16 on both sides)."""
+    from repro_torch.kernels.flash.kernel import LAUNCHES
+    from repro_torch.kernels.flash.ref import flash_ref
+    from repro_torch.kernels.flash import FlashAttention
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((6, 333, 64), generator=gen, device=dev) * 0.125
+    k, v = (torch.randn((6, 333, 64), generator=gen, device=dev).to(kvdt)
+            for _ in range(2))
+    dout = torch.randn((6, 333, 64), generator=gen, device=dev)
+    res = []
+    for fn in (lambda a, b, c: FlashAttention.apply(a, b, c, causal, window, 128),
+               lambda a, b, c: flash_ref(a, b, c, causal=causal, window=window)):
+        a, b, c = (x.clone().requires_grad_(True) for x in (q, k, v))
+        before = LAUNCHES.count
+        out = fn(a, b, c)
+        res.append((LAUNCHES.count - before, out.detach(),
+                    *torch.autograd.grad(out, (a, b, c), dout)))
+    assert res[0][0] == 1 and res[1][0] == 0
+    for got, want in zip(res[0][1:], res[1][1:]):
+        assert got.dtype == want.dtype
+        assert _rel(got.float(), want.float()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_repeat_bit_for_bit_through_flash(monkeypatch):
+    """Three SMOKE steps with per-block remat and the blockwise threshold
+    lowered, so every layer runs the flash kernel forward and again in its
+    recompute: two runs from one seed give the same losses and
+    parameters, bit for bit (atomics-free or deterministic backward)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash.kernel import LAUNCHES
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import attention as attn_mod
+    dev = _device()
+    monkeypatch.setattr(attn_mod, "BLOCKWISE_THRESHOLD", 16)
+    cfg = get_smoke_config("granite_3_2b").replace(remat=True)
+    outs = []
+    for _ in range(2):
+        LAUNCHES.reset()
+        out = train_loop(cfg, TrainConfig(peak_lr=3e-3, warmup_steps=1,
+                                          total_steps=3),
+                         global_batch=4, seq_len=96, steps=3,
+                         log=lambda *a: None, device=dev)
+        outs.append((out["losses"], LAUNCHES.count,
+                     [p.detach().clone() for p in out["state"].params.parameters()]))
+    assert outs[0][1] == 2 * cfg.n_layers * 3
+    assert outs[0][0] == outs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][2], outs[1][2]))
 
 
 @pytest.mark.cuda
