@@ -33,8 +33,9 @@ in order, printing one JSON line per phase:
                  re-reading geometry (l=4000) and its repeat bit for bit;
                  panel_gram's column split and n = 0 identities (bit for
                  bit); flash at granite's prefill (32 heads, hd 64,
-                 S=T=4000, causal) and danube's (32 heads, hd 80,
-                 S=T=6144, window 4096), a non-causal, a ragged S != T and
+                 S=T=4000, causal), danube's (32 heads, hd 80,
+                 S=T=6144, window 4096) and qwen2-moe's (16 heads, hd 128,
+                 S=T=4000, causal), a non-causal, a ragged S != T and
                  an hd 256 case, q f32 with k/v bf16 and all f32, each
                  also with its lse (o bit-equal, lse against flash_ref's);
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
@@ -119,6 +120,24 @@ in order, printing one JSON line per phase:
                  6144-token prefill (window 4096: skipped kv blocks and the
                  ring-buffer fill; 4 flash launches), 16 decode steps on the
                  ring buffer, the first layer's attention against ref.py;
+  moe         -- (a) qwen2-moe-a2.7b at full width and depth (24 layers,
+                 60 experts top-4 and 4 shared, 1.432e10 parameters, 57.3
+                 GB in f32, random weights from a seed) through the serve
+                 phase's engine and 8 requests: flash launched 48 times
+                 and nothing else, tokens per second, the 4000-token
+                 prefill, the mean decode step, peak memory, the long
+                 prefill's moe_drop by layer, the weight casts' byte floor,
+                 and one prefill and one batch-4 decode step under
+                 ``torch.profiler`` (flash, the dtype casts, the expert
+                 SwiGLU and the rest); (b) one layer's moe_ffn on 512
+                 tokens in f32 on the card and the CPU: top-k and keep
+                 equal, y and the aux values within 1e-4, two card calls
+                 bit-equal, the bf16 compute gap; (c) phi3.5-moe and (d)
+                 qwen3-8b and qwen2-7b at full width, 4 layers: a
+                 4000-token prefill (4 flash launches), 16 decode steps,
+                 the first layer's attention against ref.py; (e) qwen2-moe
+                 at 2 layers, 1 x 4096 tokens, 2 steps through
+                 ``launch.steps``, twice: bit-equal, finite, grad norm > 0;
   analysis    -- ``repro_torch.analysis.run_all(device="cuda")`` on a
                  one-rank NCCL group (what ``python -m repro_torch.analysis``
                  runs): 0 new findings against the empty baseline, every
@@ -141,7 +160,7 @@ in order, printing one JSON line per phase:
                  bench_dmma's least of two rounds, and under
                  ``torch.profiler`` their kernels' device time and device
                  span a call, with the SM clock)
-                 (flash at granite's serve shape, beside
+                 (flash at granite's and qwen2-moe's serve shapes, beside
                  ``F.scaled_dot_product_attention``, its bound two TF32
                  passes on the tensor cores; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
@@ -241,12 +260,15 @@ PEAK_BF16_FLOPS = 989e12
 # softmax).
 FLASH_TOL = 1e-5
 # (case, B*H, S, T, hd, causal, window): the prefill shapes of granite-3-2b
-# and h2o-danube-1.8b, a non-causal and a ragged case.
+# and h2o-danube-1.8b, a non-causal and a ragged case, and qwen2-moe-a2.7b's
+# prefill (the last; its inputs come from a generator of their own, so the
+# shared generator's draws for the main path are the earlier cases').
 FLASH_CASES = (("granite prefill", 32, 4000, 4000, 64, True, None),
                ("danube prefill", 32, 6144, 6144, 80, True, 4096),
                ("non-causal", 32, 1024, 1024, 64, False, None),
                ("ragged", 32, 1500, 3000, 80, True, None),
-               ("hd 256", 8, 1024, 1024, 256, True, None))
+               ("hd 256", 8, 1024, 1024, 256, True, None),
+               ("qwen2-moe prefill", 16, 4000, 4000, 128, True, None))
 # The serve phase: granite-3-2b's engine, its long prompts and the chunked
 # cross-check.  Tolerance of the one-shot (flash) against the chunked
 # (dense) prefill's last-token logits, both in bf16 compute through 40
@@ -258,6 +280,17 @@ SERVE_BATCH, SERVE_LEN, SERVE_LONG, SERVE_NEW = 4, 4608, (3000, 4000), 16
 CHUNK = 512
 CHUNK_TOL = {"rel_l2": 0.05, "max_abs_over_max": 0.1}
 SWA_LAYERS, SWA_PROMPT, SWA_STEPS = 4, 6144, 16
+# The moe phase: qwen2-moe-a2.7b at full width and depth through the serve
+# phase's engine and requests; one of its layers' moe_ffn on 512 tokens in
+# f32 compute on the card and on the CPU (routing equal; y and the aux
+# values within MOE_TOL of the largest entry: f32 sums in another order
+# over d=2048 and f=1408, the gaps about 1e-6); phi3.5-moe, qwen3-8b and
+# qwen2-7b at full width with their depth cut to MOE_CUT_LAYERS (a 4000-
+# token prefill, 16 decode steps); qwen2-moe at 2 layers trained on
+# 1 x 4096 tokens for 2 steps, twice.
+MOE_LAYER_TOKENS, MOE_TOL = 512, 1e-4
+MOE_CUT_LAYERS, MOE_PROMPT, MOE_STEPS = 4, 4000, 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 4096, 2
 # The train phase: granite-3-2b at full width and depth, batch 2 x 4096
 # (train_4k's length), 5 steps; (c) at 2 layers.  Tolerance of the
 # Function's gradients against autograd through flash_ref, relative to the
@@ -365,6 +398,8 @@ def main() -> int:
         from repro_torch.models import (decode_step, init_caches, init_params,
                                         prefill, prefill_chunk)
         from repro_torch.models import attention as attn_mod
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as tr_mod
         from repro_torch.models.norms import rmsnorm
         from repro_torch.models.rope import apply_rope, rope_cos_sin
         from repro_torch.models.transformer import embed_tokens
@@ -410,7 +445,8 @@ def main() -> int:
         from repro_torch.stream import ArraySource, SpectrumSource, rid_streamed
         from repro_torch.data import SyntheticConfig, batch_for_step
         from repro_torch.launch import steps as steps_mod
-        from repro_torch.launch.steps import TrainConfig, make_train_step
+        from repro_torch.launch.steps import (TrainConfig, init_train_state,
+                                              make_train_step)
         from repro_torch.launch.train import train_loop
         from repro_torch.kernels.flash import BLOCK_KV, FlashAttention
         from repro_torch.optim import CompressorConfig
@@ -1037,12 +1073,18 @@ def main() -> int:
         return live / (nq * nk)
 
     flash_err = None            # max abs error at granite's shape, f32/bf16
+    gen_moe_case = torch.Generator(device=dev)
+    gen_moe_case.manual_seed(SEED + 26)
     for case, bh, s, t, hd, causal, window in FLASH_CASES:
+        g_case = gen_moe_case if case == "qwen2-moe prefill" else gen
         for qdt, kvdt in ((torch.float32, torch.bfloat16),
                           (torch.float32, torch.float32)):
-            q = randn((bh, s, hd), torch.float32) * hd ** -0.5
-            k = randn((bh, t, hd), torch.float32).to(kvdt)
-            v = randn((bh, t, hd), torch.float32).to(kvdt)
+            q = torch.randn((bh, s, hd), generator=g_case,
+                            device=dev) * hd ** -0.5
+            k = torch.randn((bh, t, hd), generator=g_case,
+                            device=dev).to(kvdt)
+            v = torch.randn((bh, t, hd), generator=g_case,
+                            device=dev).to(kvdt)
             before = FLASH_LAUNCHES.count
             got = flash_attention_kernel(q, k, v, causal=causal,
                                          window=window)
@@ -2135,6 +2177,361 @@ def main() -> int:
     del dmodel, caches, lg, toks, h, q, k, v, kr, vr, got, want
     torch.cuda.empty_cache()
 
+    # ------------- moe: qwen2-moe-a2.7b at full width and depth; phi3.5-moe,
+    # qwen3-8b and qwen2-7b at full width, depth cut to 4 (own generator).
+    gen_moe = torch.Generator(device=dev)
+    gen_moe.manual_seed(SEED + 27)
+
+    @contextlib.contextmanager
+    def recording_moe(record):
+        """The models' moe_ffn, keeping each call's aux values."""
+        real = tr_mod.moe_ffn
+
+        def rec(p, c, x, *, group_size=None):
+            y, aux = real(p, c, x, group_size=group_size)
+            record.append(aux)
+            return y, aux
+        with mock.patch.object(tr_mod, "moe_ffn", rec):
+            yield record
+
+    def profiled_parts(fn) -> dict:
+        """One call of ``fn`` under ``torch.profiler``: busy and idle share,
+        and the device time of the flash kernel, of the dtype casts (under
+        ``aten::_to_copy``: the f32 -> bf16 weight casts and a few small
+        activation casts), of the expert SwiGLU (the ``moe.experts``
+        range: three batched GEMMs and the gate) and of the rest."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in averages
+                          if e.device_type == DeviceType.CUDA
+                          and e.self_device_time_total > 0
+                          and not getattr(e, "is_user_annotation", False)),
+                         key=lambda r: -r[1])
+        busy = sum(r[1] for r in kernels)
+        check(busy > 0, "moe trace: no device time recorded")
+
+        def under(name) -> float:
+            return max([e.device_time_total / 1e3 for e in averages
+                        if e.key == name], default=0.0)
+        parts = {"flash_ms": sum(r[1] for r in kernels
+                                 if "flash_fwd_kernel" in r[0]),
+                 "casts_ms": under("aten::_to_copy"),
+                 "expert_swiglu_ms": under("moe.experts")}
+        parts["rest_ms"] = busy - sum(parts.values())
+        return {"traced_wall_s": wall, "device_busy_ms": busy,
+                "device_idle_share": 1 - busy / (1e3 * wall), **parts,
+                "top_kernels": [{"name": k[:80], "ms": ms, "count": c}
+                                for k, ms, c in kernels[:12]]}
+
+    def cast_bytes(model) -> int:
+        """Bytes a forward's weight casts move: every block weight the
+        model casts to the compute dtype (all but the norms' scales and
+        the f32 router), read in f32 and written in bf16."""
+        return sum(6 * t.numel() for name, t in model.named_parameters()
+                   if name.startswith("blocks.") and "norm" not in name
+                   and not name.endswith(("ln1.scale", "ln2.scale",
+                                          "router")))
+
+    moe_flash_launches = 0
+    # (a) qwen2-moe-a2.7b at full width and depth through the engine.
+    cfg = get_config("qwen2-moe-a2.7b")
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = []
+    for _ in range(6):                  # as launch/serve.py draws them
+        plen = int(rng.integers(4, 12))
+        prompts.append(rng.integers(0, cfg.vocab_size, plen).astype(np.int32))
+    prompts += [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in SERVE_LONG]
+    eng = ServeEngine(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN)
+    reqs = [GenerationRequest(request_id=i, prompt=p,
+                              max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tracing(tracer):
+        eng.run()
+    torch.cuda.synchronize()
+    moe_wall = time.perf_counter() - t0
+    moe_launches = read_counts()
+    moe_peak = torch.cuda.max_memory_allocated()
+    moe_flash_launches += moe_launches["flash"]
+    long_prefill = [sp.dur for sp in tracer.spans if sp.name == "serve.prefill"
+                    and sp.attrs.get("prompt_tokens") == SERVE_LONG[-1]]
+    decode_s = [sp.dur for sp in tracer.spans if sp.name == "serve.decode"]
+    tokens = sum(len(r.output) for r in reqs)
+    n_long = sum(len(p) > attn_mod.BLOCKWISE_THRESHOLD for p in prompts)
+    statuses = [(r.status, len(r.output)) for r in reqs]
+    del eng, reqs, tracer
+    torch.cuda.empty_cache()
+    # The long prompt once more, its layers' drops recorded, then a
+    # profiled prefill and a profiled batch-4 decode step.
+    toks = torch.as_tensor(prompts[-1], dtype=torch.int64, device=dev)[None]
+    with recording_moe([]) as record:
+        lg, caches = prefill(model, cfg, toks, max_len=SERVE_LEN)
+    long_drop = [float(a.dropped_fraction) for a in record]
+    long_lb = [float(a.load_balance_loss) for a in record]
+    check(len(long_drop) == cfg.n_layers, f"moe (a): {len(long_drop)} MoE "
+          f"calls in the long prefill")
+    nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    finite = bool(torch.isfinite(lg).all())
+    del caches, lg
+    prefill_trace = profiled_parts(lambda: prefill(model, cfg, toks,
+                                                   max_len=SERVE_LEN))
+    batch = init_caches(cfg, SERVE_BATCH, SERVE_LEN, dev)
+    step_toks = nxt.expand(SERVE_BATCH, 1).contiguous()
+    step_pos = torch.full((SERVE_BATCH,), toks.shape[1], device=dev)
+    decode_step(model, cfg, step_toks, step_pos, batch)
+    decode_trace = profiled_parts(lambda: decode_step(model, cfg, step_toks,
+                                                      step_pos, batch))
+    del batch
+    torch.cuda.empty_cache()
+    moved = cast_bytes(model)
+    emit({"phase": "moe", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_experts": cfg.n_experts, "top_k": cfg.n_experts_active,
+          "n_shared_experts": cfg.n_shared_experts,
+          "moe_d_ff": cfg.moe_d_ff, "params": cfg.param_count(),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "memory_allocated_at_start": mem_start, "init_s": init_s,
+          "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, "wall_s": moe_wall,
+          "generated_tokens": tokens, "tokens_per_s": tokens / moe_wall,
+          "prefill_4000_s": long_prefill[0] if long_prefill else None,
+          "decode_steps": len(decode_s),
+          "decode_step_mean_s": (sum(decode_s) / len(decode_s)
+                                 if decode_s else None),
+          "max_memory_allocated": moe_peak, "launches": moe_launches,
+          "long_prefill_moe_drop_mean": sum(long_drop) / len(long_drop),
+          "long_prefill_moe_drop_by_layer": long_drop,
+          "long_prefill_moe_lb_mean": sum(long_lb) / len(long_lb),
+          "cast_bytes_per_forward": moved,
+          "cast_floor_ms": 1e3 * moved / HBM_BYTES_PER_S,
+          "prefill_trace": prefill_trace, "decode_step_batch": SERVE_BATCH,
+          "decode_step_trace": decode_trace, "finite": finite})
+    check(all(st == "done" and n == SERVE_NEW for st, n in statuses),
+          f"moe (a): {statuses}")
+    check(moe_launches["flash"] == n_long * cfg.n_layers == 48,
+          f"moe (a): flash launched {moe_launches['flash']} times, expected "
+          f"{n_long} x {cfg.n_layers}")
+    check(all(v == 0 for name, v in moe_launches.items() if name != "flash"),
+          f"moe (a): other kernels launched {moe_launches}")
+    check(len(long_prefill) == 1, "moe (a): no prefill span of the long "
+          "prompt")
+    check(finite, "moe (a): logits not finite")
+
+    # (b) One layer's moe_ffn at full width on 512 tokens in f32 compute,
+    # on the card (twice) and on the CPU with the same weights and input.
+    lcfg = cfg.replace(dtype="float32")
+    layer = model.blocks[0].moe
+    x = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen_moe,
+                    device=dev)
+    y1, aux1 = moe_mod.moe_ffn(layer, lcfg, x)
+    y2, aux2 = moe_mod.moe_ffn(layer, lcfg, x)
+    y_bf16, _ = moe_mod.moe_ffn(layer, cfg, x)
+    cpu_layer = moe_mod.MoE(lcfg)
+    for a, b in zip(cpu_layer.parameters(), layer.parameters()):
+        a.copy_(b.cpu())
+    t0 = time.perf_counter()
+    y_cpu, aux_cpu = moe_mod.moe_ffn(cpu_layer, lcfg, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    capacity = moe_mod.moe_capacity(lcfg, MOE_LAYER_TOKENS)
+    routing = []
+    for mod, t in ((layer, x), (cpu_layer, x.cpu())):
+        _, _, top_i = moe_mod.route(mod, lcfg, t)
+        _, keep = moe_mod.dispatch_indices(top_i.reshape(1, -1),
+                                           cfg.n_experts, capacity)
+        routing.append((top_i.cpu(), keep.cpu()))
+    y_err = rel_err(y1.cpu(), y_cpu)
+    aux_err = [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+               for a, b in zip(aux1, aux_cpu)]
+    repeat = bool(torch.equal(y1, y2) and all(
+        torch.equal(a, b) for a, b in zip(aux1, aux2)))
+    top_equal = bool(torch.equal(routing[0][0], routing[1][0]))
+    keep_equal = bool(torch.equal(routing[0][1], routing[1][1]))
+    emit({"phase": "moe", "part": "b", "arch": cfg.name, "layer": 0,
+          "tokens": MOE_LAYER_TOKENS, "capacity": capacity,
+          "compute_dtype": "float32", "topk_equal": top_equal,
+          "keep_equal": keep_equal, "kept_pairs": int(routing[0][1].sum()),
+          "y_rel_err": y_err, "aux_rel_err": aux_err, "tol": MOE_TOL,
+          "moe_lb": float(aux1.load_balance_loss),
+          "moe_drop": float(aux1.dropped_fraction),
+          "card_repeat_bit_equal": repeat, "cpu_s": cpu_s,
+          "bf16_vs_f32_compute_rel_err": rel_err(y_bf16.float(), y1)})
+    check(top_equal and keep_equal, "moe (b): routing differs from the CPU")
+    check(y_err <= MOE_TOL and all(e <= MOE_TOL for e in aux_err),
+          f"moe (b): y {y_err}, aux {aux_err} beyond {MOE_TOL}")
+    check(repeat, "moe (b): two card calls differ")
+    del model, layer, cpu_layer, x, y1, y2, y_bf16, y_cpu, toks, nxt
+    del step_toks, step_pos
+    torch.cuda.empty_cache()
+
+    # (c), (d) phi3.5-moe, qwen3-8b and qwen2-7b at full width, 4 layers.
+    def cut_run(name) -> dict:
+        c = get_config(name).replace(n_layers=MOE_CUT_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        m = init_params(SEED, c, device=dev)
+        toks = torch.randint(0, c.vocab_size, (1, MOE_PROMPT),
+                             generator=gen_moe, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        with recording_moe([]) as record:
+            t0 = time.perf_counter()
+            lg, caches = prefill(m, c, toks, max_len=MOE_PROMPT + MOE_STEPS)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            n_prefill = len(record)
+            finite = bool(torch.isfinite(lg).all())
+            t0 = time.perf_counter()
+            for i in range(MOE_STEPS):
+                nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                lg, caches = decode_step(m, c, nxt, MOE_PROMPT + i, caches)
+                finite = finite and bool(torch.isfinite(lg).all())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        launches = read_counts()
+        drops = [float(a.dropped_fraction) for a in record]
+        # The first layer's attention at the prompt (qk-norm, QKV bias and
+        # GQA on the card): the kernel through the model's blockwise path
+        # against ref.py on the same q, k, v.
+        blk = m.blocks[0]
+        h = rmsnorm(blk.ln1, embed_tokens(m, c, toks), c.norm_eps)
+        q, k, v = attn_mod._project_qkv(blk.mixer, c, h, h)
+        pos = torch.arange(MOE_PROMPT, device=dev)[None]
+        cos, sin = rope_cos_sin(pos, c.hd, c.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        g = c.n_heads // c.n_kv_heads
+        kr, vr = attn_mod._repeat_kv(k, g), attn_mod._repeat_kv(v, g)
+        got = attn_mod._attention_blockwise(q, kr, vr, causal=True,
+                                            window=None)
+        B, S, H, hd = q.shape
+        tohm = lambda t: t.transpose(1, 2).reshape(B * H, S, hd)  # noqa: E731
+        want = flash_ref(tohm(q.float()) * torch.tensor(hd ** -0.5,
+                                                         device=dev),
+                         tohm(kr), tohm(vr), causal=True)
+        want = want.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd)
+        err = rel_err(got, want)
+        out = {"arch": c.name, "n_layers": MOE_CUT_LAYERS,
+               "reduced": f"depth cut from {get_config(name).n_layers} to "
+                          f"{MOE_CUT_LAYERS} layers (device memory and run "
+                          f"time)",
+               "d_model": c.d_model, "n_heads": c.n_heads,
+               "n_kv_heads": c.n_kv_heads, "hd": c.hd, "qk_norm": c.qk_norm,
+               "qkv_bias": c.qkv_bias, "params": c.param_count(),
+               "prompt_tokens": MOE_PROMPT, "decode_steps": MOE_STEPS,
+               "prefill_s": prefill_s,
+               "decode_step_mean_s": decode_s / MOE_STEPS,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches, "finite": finite,
+               "layer0_attention_rel_err": err, "rel_tol": FLASH_TOL}
+        if c.moe:
+            out.update(n_experts=c.n_experts, top_k=c.n_experts_active,
+                       moe_d_ff=c.moe_d_ff,
+                       prefill_moe_drop_mean=sum(drops[:n_prefill])
+                       / n_prefill,
+                       decode_moe_drop_mean=sum(drops[n_prefill:])
+                       / max(1, len(drops) - n_prefill))
+        check(finite, f"moe {name}: logits not finite")
+        check(launches["flash"] == MOE_CUT_LAYERS,
+              f"moe {name}: flash launched {launches['flash']} times, "
+              f"expected {MOE_CUT_LAYERS}")
+        check(all(v == 0 for key, v in launches.items() if key != "flash"),
+              f"moe {name}: other kernels launched {launches}")
+        check(len(drops) == (MOE_CUT_LAYERS * (1 + MOE_STEPS) if c.moe
+                             else 0), f"moe {name}: {len(drops)} MoE calls")
+        check(err <= FLASH_TOL, f"moe {name}: layer-0 attention rel err "
+              f"{err}")
+        del m, toks, lg, caches, h, q, k, v, kr, vr, got, want
+        torch.cuda.empty_cache()
+        return out
+
+    for part, name in (("c", "phi3.5-moe-42b-a6.6b"), ("d", "qwen3-8b"),
+                       ("d", "qwen2-7b")):
+        res = cut_run(name)
+        moe_flash_launches += res["launches"]["flash"]
+        emit({"phase": "moe", "part": part, **res})
+
+    # (e) qwen2-moe at full width, 2 layers, batch 1 x 4096 through
+    # launch.steps: two runs of 2 steps from one seed, bit for bit.
+    c2 = cfg.replace(n_layers=MOE_TRAIN_LAYERS)
+    tcfg = TrainConfig(peak_lr=3e-4, warmup_steps=1,
+                       total_steps=MOE_TRAIN_STEPS)
+    data_cfg = SyntheticConfig(vocab_size=c2.vocab_size,
+                               seq_len=MOE_TRAIN_SEQ, global_batch=1,
+                               seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs = []
+    for _ in range(2):
+        state = init_train_state(SEED, c2, tcfg, device=dev)
+        step_fn = make_train_step(c2, tcfg)
+        hist = []
+        for s in range(MOE_TRAIN_STEPS):
+            batch = batch_for_step(data_cfg, s, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            hist.append({"seconds": time.perf_counter() - t0,
+                         **{key: float(m[key]) for key in (
+                             "loss", "grad_norm", "lr", "moe_lb",
+                             "moe_drop", "z_loss")}})
+        runs.append((hist, [p.detach().clone()
+                            for p in state.params.parameters()]))
+        del state, step_fn, batch, m
+        torch.cuda.empty_cache()
+    train_launches_moe = read_counts()
+    train_peak_moe = torch.cuda.max_memory_allocated()
+    strip = [[{k: v for k, v in h.items() if k != "seconds"} for h in hist]
+             for hist, _ in runs]
+    replay = strip[0] == strip[1] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    hist = runs[0][0]
+    del runs
+    torch.cuda.empty_cache()
+    moe_flash_launches += train_launches_moe["flash"]
+    emit({"phase": "moe", "part": "e", "arch": c2.name,
+          "n_layers": MOE_TRAIN_LAYERS,
+          "reduced": f"depth cut from {cfg.n_layers} to {MOE_TRAIN_LAYERS} "
+                     f"layers (f32 masters and AdamW of 24 layers take about "
+                     f"229 GB)",
+          "params": c2.param_count(), "batch": 1, "seq": MOE_TRAIN_SEQ,
+          "remat": c2.remat, "steps": hist, "replay_bit_equal": replay,
+          "max_memory_allocated": train_peak_moe,
+          "launches": train_launches_moe})
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          f"moe (e): losses {[h['loss'] for h in hist]}")
+    check(all(h["grad_norm"] > 0 and math.isfinite(h["grad_norm"])
+              for h in hist), f"moe (e): grad norms "
+          f"{[h['grad_norm'] for h in hist]}")
+    check(replay, "moe (e): two runs differ")
+    check(train_launches_moe["flash"] == 2 * 2 * MOE_TRAIN_LAYERS
+          * MOE_TRAIN_STEPS, f"moe (e): flash launched "
+          f"{train_launches_moe['flash']} times")
+    check(all(v == 0 for name, v in train_launches_moe.items()
+              if name != "flash"), f"moe (e): other kernels "
+          f"{train_launches_moe}")
+
     # ---------- analysis: python -m repro_torch.analysis's run on the card
     # run_all: the dataflow entries on a one-rank NCCL group, the kernel
     # contracts held to the C side, the lint, the controls (big_copy's
@@ -2561,6 +2958,38 @@ def main() -> int:
     del q, k, v, k4, v4
     torch.cuda.empty_cache()
 
+    # flash at qwen2-moe-a2.7b's 4000-token prefill (16 heads, hd 128,
+    # causal; the same bound, bytes and library call as above), from a
+    # generator of its own; launches from phase moe (a).
+    gen_fm = torch.Generator(device=dev)
+    gen_fm.manual_seed(SEED + 28)
+    bh, S, hd = 16, SERVE_LONG[-1], 128
+    q = torch.randn((bh, S, hd), generator=gen_fm, device=dev) * hd ** -0.5
+    k, v = (torch.randn((bh, S, hd), generator=gen_fm,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    k4, v4 = (x.float()[None] for x in (k, v))
+    pairs = bh * live_pairs(S, S, True, None)
+    moe_flops = 4.0 * hd * pairs
+    moe_bytes = bh * S * hd * (4 + 2 + 2 + 4)
+    t_flop = 2 * moe_flops / PEAK_TF32_FLOPS
+    t_byte = moe_bytes / HBM_BYTES_PER_S
+    moe_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v), 20)
+    emit({"phase": "times", "kernel": "flash", "case": "qwen2-moe prefill",
+          "bh": bh, "s": S, "t": S, "hd": hd, "causal": True,
+          "q_dtype": "float32", "kv_dtype": "bfloat16",
+          "launches_in_phase_moe_a": moe_launches["flash"],
+          "live_pairs": pairs, "flops": moe_flops, "bytes": moe_bytes,
+          "peak": "TF32 tensor 495 TFLOP/s, 2 passes", "ms": moe_ms,
+          "tflops": moe_flops / moe_ms / 1e9,
+          "plain_ms": cuda_ms(lambda: flash_ref(q, k, v), 3),
+          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+              q[None], k4, v4, is_causal=True, scale=1.0), 20),
+          "bound_ms": 1e3 * max(t_flop, t_byte),
+          "bound_by": "operations" if t_flop >= t_byte else "bytes",
+          "ffma_bound_ms": 1e3 * max(moe_flops / PEAK_F32_FLOPS, t_byte)})
+    del q, k, v, k4, v4
+    torch.cuda.empty_cache()
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -2879,7 +3308,7 @@ def main() -> int:
               for c in compressed.values()),
           "train (c): compressed grad norm")
 
-    flash["launches"] += train_launches["flash"]
+    flash["launches"] += train_launches["flash"] + moe_flash_launches
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
                       trisolve, proj, deflate, flash, copy]})

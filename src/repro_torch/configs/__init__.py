@@ -31,8 +31,10 @@ ARCHS = (
     "xlstm_125m",
 )
 
-# The architectures the port's models run so far (dense, attention only).
-PORTED = ("granite_3_2b", "h2o_danube_1_8b")
+# The architectures the port's models run so far: the attention-only text
+# stacks, dense or MoE.
+PORTED = ("granite_3_2b", "qwen3_8b", "h2o_danube_1_8b", "qwen2_7b",
+          "phi35_moe", "qwen2_moe_a2_7b")
 
 # CLI aliases (assignment ids -> module names)
 ALIASES = {

@@ -1,5 +1,6 @@
-"""The LM stack's models (counterpart of ``repro.models``): so far the dense
-attention-only path that granite-3-2b and h2o-danube-1.8b run, for serving
+"""The LM stack's models (counterpart of ``repro.models``): so far the
+attention-only path, dense or MoE, that granite-3-2b, qwen3-8b,
+h2o-danube-1.8b, qwen2-7b, phi3.5-moe and qwen2-moe-a2.7b run, for serving
 and training."""
 from .config import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_caches,

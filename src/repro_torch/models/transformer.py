@@ -1,13 +1,13 @@
-"""The LM's dense attention-only path (counterpart of
+"""The LM's attention-only path, dense or MoE (counterpart of
 ``repro.models.transformer``).
 
 The reference stacks each pattern position's parameters across layers and
 walks the stack with ``lax.scan``; here the model is an ``nn.Module``, a
 ``Transformer`` with one ``Block`` per layer, walked by a Python loop.
 Parameter names follow the reference's tree (``embed.tok``,
-``blocks.<i>.ln1.scale``, ``blocks.<i>.mixer.wq``, ``blocks.<i>.mlp.w_up``,
-``final_norm.scale``, ``lm_head``), so ``params_from_jax`` and
-``params_to_numpy`` carry weights across by name.
+``blocks.<i>.ln1.scale``, ``blocks.<i>.mixer.wq``, ``blocks.<i>.mlp.w_up``
+or ``blocks.<i>.moe.w_up``, ``final_norm.scale``, ``lm_head``), so
+``params_from_jax`` and ``params_to_numpy`` carry weights across by name.
 
 Public surface:
   init_params                       -- random init from a seed or generator
@@ -17,11 +17,12 @@ Public surface:
   init_caches, supports_chunked_prefill
   params_from_jax / params_to_numpy -- the reference's tree <-> the module
 
-Mamba and xLSTM mixers, MoE FFNs, the encoder-decoder (whisper) and vision
-(qwen2-vl) frontends and M-RoPE are not ported yet: their configs raise
-``NotImplementedError`` here.  The serving functions run under
-``torch.inference_mode``; ``prefill_chunk`` and ``decode_step`` write into
-the caches they are given, in place, and return them.
+Mamba and xLSTM mixers, MoE on some layers only (jamba's period), the
+encoder-decoder (whisper) and vision (qwen2-vl) frontends and M-RoPE are
+not ported yet: their configs raise ``NotImplementedError`` here.  The
+serving functions run under ``torch.inference_mode``; ``prefill_chunk``
+and ``decode_step`` write into the caches they are given, in place, and
+return them.
 
 Parameters are created with ``requires_grad=False``: serving needs no
 graph.  Training turns them on (``launch.steps.init_train_state``);
@@ -31,7 +32,7 @@ recomputed in the backward under ``cfg.remat`` (the reference's
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ from . import attention as attn_mod
 from .attention import Attention, KVCache
 from .config import ModelConfig
 from .mlp import SwiGLU, mlp
+from .moe import MoE, MoEAux, moe_ffn
 from .norms import RMSNorm, rmsnorm
 from .rope import rope_cos_sin, text_positions
 
@@ -57,19 +59,13 @@ MOE_AUX_COEF = 0.01
 Z_LOSS_COEF = 1e-4
 
 
-class MoEAux(NamedTuple):
-    """The reference's auxiliary losses; zero on a dense stack."""
-    load_balance_loss: torch.Tensor
-    dropped_fraction: torch.Tensor
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's models do not run yet."""
     missing = []
     if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
         missing.append("Mamba/xLSTM mixers")
-    if cfg.moe:
-        missing.append("MoE FFNs")
+    if cfg.moe and cfg.moe_layer_period != 1:
+        missing.append("MoE on every moe_layer_period-th layer only")
     if cfg.encdec:
         missing.append("the encoder-decoder (whisper) frontend")
     if cfg.family == "vlm" or cfg.mrope:
@@ -78,19 +74,27 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"arch {cfg.name!r} needs {', '.join(missing)}, which a later "
             f"slice of the port brings (ROADMAP Queue A item 3); the port "
-            f"runs dense attention-only stacks so far")
+            f"runs attention-only stacks, MoE on every layer or none, so far")
 
 
 class Block(nn.Module):
-    """One layer: ``ln1``, the attention ``mixer``, ``ln2``, the ``mlp``."""
+    """Layer ``i``: ``ln1``, the attention ``mixer``, ``ln2``, and the FFN:
+    ``moe`` where ``cfg.layer_is_moe(i)``, else ``mlp``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, i: int, *, device=None):
         super().__init__()
         pdt = cfg.params_dtype
         self.ln1 = RMSNorm(cfg.d_model, pdt, device)
         self.mixer = Attention(cfg, device=device)
         self.ln2 = RMSNorm(cfg.d_model, pdt, device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, pdt, device)
+        if cfg.layer_is_moe(i):
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, pdt, device)
+
+    @property
+    def ffn(self):
+        return self.moe if hasattr(self, "moe") else self.mlp
 
 
 class Embed(nn.Module):
@@ -114,8 +118,8 @@ class Transformer(nn.Module):
         pdt = cfg.params_dtype
         d, Vp = cfg.d_model, cfg.padded_vocab
         self.embed = Embed(Vp, d, pdt, device)
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, i, device=device)
+                                    for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(d, pdt, device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty((d, Vp), dtype=pdt,
@@ -137,7 +141,7 @@ def init_params(gen_or_seed, cfg: ModelConfig, *,
     d = cfg.d_model
     for blk in model.blocks:
         blk.mixer.init_(gen)
-        blk.mlp.init_(gen)
+        blk.ffn.init_(gen)
     model.embed.tok.copy_(torch.randn(model.embed.tok.shape, generator=gen,
                                       device=dev) * d ** -0.5)
     if not cfg.tie_embeddings:
@@ -167,18 +171,28 @@ def lm_logits(params: Transformer, cfg: ModelConfig,
     return x.float() @ head.float()
 
 
+def _ffn(cfg: ModelConfig, bp: Block, x, group_size=None):
+    """The block's FFN sublayer on ``x``: (output, MoEAux or None)."""
+    h = _norm(cfg, bp.ln2, x)
+    if hasattr(bp, "moe"):
+        return moe_ffn(bp.moe, cfg, h, group_size=group_size)
+    return mlp(bp.mlp, cfg, h), None
+
+
 def _block_forward(cfg: ModelConfig, bp: Block, x, cos, sin):
     h = attn_mod.attention(bp.mixer, cfg, _norm(cfg, bp.ln1, x), cos, sin,
                            causal=True)
     x = x + h
-    return x + mlp(bp.mlp, cfg, _norm(cfg, bp.ln2, x))
+    h, aux = _ffn(cfg, bp, x)
+    return x + h, aux
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, MoEAux]:
     """Full-sequence logits (B, S, padded vocab) in f32, and the auxiliary
-    losses (zero: no MoE).  With gradients on and ``cfg.remat``, each block
+    losses summed over the MoE layers and divided by their number (zero
+    on a dense stack).  With gradients on and ``cfg.remat``, each block
     keeps only its input and is recomputed in the backward (the
     reference's per-superblock ``jax.checkpoint``; its sqrt grouping is a
     memory layout of the scan, not arithmetic).  The recompute gives the
@@ -189,15 +203,20 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = text_positions(B, S, device=tokens.device)
     cos, sin = _rope_tables(cfg, positions)
     remat = cfg.remat and torch.is_grad_enabled()
+    lb = dr = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0
     for bp in params.blocks:
         if remat:
-            x = checkpoint(_block_forward, cfg, bp, x, cos, sin,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block_forward, cfg, bp, x, cos, sin,
+                                use_reentrant=False)
         else:
-            x = _block_forward(cfg, bp, x, cos, sin)
+            x, aux = _block_forward(cfg, bp, x, cos, sin)
+        if aux is not None:
+            lb, dr = lb + aux.load_balance_loss, dr + aux.dropped_fraction
+            n_moe += 1
     x = _norm(cfg, params.final_norm, x)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return lm_logits(params, cfg, x), MoEAux(zero, zero)
+    n_moe = max(1, n_moe)
+    return lm_logits(params, cfg, x), MoEAux(lb / n_moe, dr / n_moe)
 
 
 # ------------------------------------------------------------------- loss
@@ -280,7 +299,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
         h, cache = _attn_prefill_cache(cfg, bp, _norm(cfg, bp.ln1, x), cos,
                                        sin, max_len)
         x = x + h
-        x = x + mlp(bp.mlp, cfg, _norm(cfg, bp.ln2, x))
+        x = x + _ffn(cfg, bp, x)[0]
         caches.append(cache)
     x_last = _norm(cfg, params.final_norm, x[:, -1:])
     return lm_logits(params, cfg, x_last), {"self": caches}
@@ -317,7 +336,7 @@ def prefill_chunk(params: Transformer, cfg: ModelConfig,
                                          _norm(cfg, bp.ln1, x), pos0, cache,
                                          cos, sin)
         x = x + h
-        x = x + mlp(bp.mlp, cfg, _norm(cfg, bp.ln2, x))
+        x = x + _ffn(cfg, bp, x)[0]
     x_last = _norm(cfg, params.final_norm, x[:, -1:])
     return lm_logits(params, cfg, x_last), caches
 
@@ -342,7 +361,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                                          _norm(cfg, bp.ln1, x), pos, cache,
                                          cos, sin)
         x = x + h
-        x = x + mlp(bp.mlp, cfg, _norm(cfg, bp.ln2, x))
+        # The whole batch is one dispatch group (the reference's).
+        x = x + _ffn(cfg, bp, x, group_size=B)[0]
     x = _norm(cfg, params.final_norm, x)
     return lm_logits(params, cfg, x), caches
 
@@ -351,8 +371,15 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _block_leaves(bp: Block) -> dict:
     """The reference's per-layer leaf dict of one block, as tensors."""
+    ffn = {}
+    for name, t in bp.ffn.named_parameters():
+        node = ffn
+        *heads, leaf = name.split(".")
+        for key in heads:                   # moe.shared.w_gate and the like
+            node = node.setdefault(key, {})
+        node[leaf] = t
     out = {"ln1": {"scale": bp.ln1.scale}, "ln2": {"scale": bp.ln2.scale},
-           "mixer": {}, "mlp": dict(bp.mlp.named_parameters())}
+           "mixer": {}, "moe" if hasattr(bp, "moe") else "mlp": ffn}
     for name, t in bp.mixer.named_parameters(recurse=False):
         out["mixer"][name] = t
     for name in ("q_norm", "k_norm"):
@@ -388,7 +415,7 @@ def params_from_jax(params_np: dict, cfg: ModelConfig,
     blocks = params_np["blocks"]
     if len(blocks) != 1:
         raise ValueError(f"params['blocks'] has {len(blocks)} pattern "
-                         f"positions; a dense stack has 1")
+                         f"positions; the port's stacks have 1")
     top = {"embed": {"tok": model.embed.tok},
            "final_norm": {"scale": model.final_norm.scale}}
     if not cfg.tie_embeddings:

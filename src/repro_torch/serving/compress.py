@@ -16,12 +16,15 @@ weights, which a ``LowRankWeight`` does not have either
 
 The tree may be nested dicts, lists and tuples of tensors or an
 ``nn.Module`` (the port's ``Transformer``): a module's leaves are its
-parameters, named by their dotted path.  Only 2-D leaves are eligible.
-The port's model holds one weight per layer, where the reference stacks
-each projection over the layers; ``compress_params`` therefore groups the
-layers' leaves of one projection (``blocks.<i>.mixer.wq`` for every ``i``
-is the projection ``blocks.*.mixer.wq``) and, as the reference does with
-a stack, factors every layer of it or none.
+parameters, named by their dotted path.  A leaf of a target name with 2
+or more dimensions is eligible; one with more than 2 (the port's (E, m, n)
+expert stacks) is factored one (m, n) slice at a time, as the reference
+factors its stacked leaves.  The port's model holds one weight per layer,
+where the reference stacks each projection over the layers;
+``compress_params`` therefore groups the layers' leaves of one projection
+(``blocks.<i>.mixer.wq`` for every ``i`` is the projection
+``blocks.*.mixer.wq``) and, as the reference does with a stack, factors
+every slice of it, over every layer and every expert, or none.
 """
 from __future__ import annotations
 
@@ -44,13 +47,14 @@ _TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
 
 
 class LowRankWeight(NamedTuple):
-    """Drop-in factored weight: ``x @ W`` becomes ``(x @ B) @ P``."""
-    B: torch.Tensor       # (m, k)
-    P: torch.Tensor       # (k, n)
+    """Drop-in factored weight: ``x @ W`` becomes ``(x @ B) @ P``; a
+    stacked weight (E, m, n) has B (E, m, k) and P (E, k, n)."""
+    B: torch.Tensor       # (..., m, k)
+    P: torch.Tensor       # (..., k, n)
 
     @property
     def shape(self):
-        return (self.B.shape[0], self.P.shape[1])
+        return tuple(self.B.shape[:-1]) + (self.P.shape[-1],)
 
     def materialize(self) -> torch.Tensor:
         return self.B @ self.P
@@ -79,7 +83,7 @@ def _name(path) -> str:
 
 
 def _eligible(path, leaf) -> bool:
-    return bool(path) and path[-1] in _TARGETS and leaf.dim() == 2
+    return bool(path) and path[-1] in _TARGETS and leaf.dim() >= 2
 
 
 def low_rank_targets(params: Any) -> list[str]:
@@ -103,6 +107,31 @@ def _maybe_compress(seed: int, W: torch.Tensor, rank: int,
     B = (dec.U * dec.S[None, :]).to(W.dtype)
     P = dec.Vh.to(W.dtype)
     return LowRankWeight(B=B, P=P)
+
+
+def _compress_leaf(seed: int, i: int, W: torch.Tensor, rank: int,
+                   energy_keep: float, qr_impl: str):
+    """Leaf ``i``: a matrix probed with ``block_seed(seed, i)``; a stacked
+    leaf slice by slice, slice ``j`` with ``block_seed(seed, i * 997 + j)``
+    (the reference's ``fold_in(key, i * 997 + j)``), factored only if every
+    slice passes."""
+    if W.dim() == 2:
+        return _maybe_compress(block_seed(seed, i), W, rank, energy_keep,
+                               qr_impl)
+    m, n = W.shape[-2:]
+    slices = W.reshape(-1, m, n)
+    lws = []
+    for j in range(slices.shape[0]):
+        lw = _maybe_compress(block_seed(seed, i * 997 + j), slices[j], rank,
+                             energy_keep, qr_impl)
+        if lw is None:
+            return None
+        lws.append(lw)
+    lead = tuple(W.shape[:-2])
+    return LowRankWeight(B=torch.stack([lw.B for lw in lws]).reshape(
+                             lead + (m, -1)),
+                         P=torch.stack([lw.P for lw in lws]).reshape(
+                             lead + (-1, n)))
 
 
 def _with_leaf(tree, path, value):
@@ -142,13 +171,13 @@ def compress_params(gen_or_seed: int, params: Any, *, rank: int,
     report); the input is not modified (a module is copied before its
     first factored leaf is set).
 
-    The layers of one projection (``_projection``) are factored together
-    or not at all, as the reference factors a stacked leaf only if every
-    slice passes the energy test; the report has one entry per projection,
-    with ``dense_elems`` and ``factored_elems`` summed over its layers.
-    ``qr_impl`` selects the pivoted-QR engine of the probing RSVD
-    ('blocked' production default | 'cgs2' oracle).  Leaf ``i`` is probed
-    with the seed ``block_seed(seed, i)``."""
+    The layers of one projection (``_projection``), and the slices of a
+    stacked leaf, are factored together or not at all, as the reference
+    factors a stacked leaf only if every slice passes the energy test; the
+    report has one entry per projection, with ``dense_elems`` and
+    ``factored_elems`` summed over its layers.  ``qr_impl`` selects the
+    pivoted-QR engine of the probing RSVD ('blocked' production default |
+    'cgs2' oracle).  Seeds: ``_compress_leaf``."""
     if isinstance(gen_or_seed, torch.Generator):
         raise TypeError("compress_params takes an int seed (one per leaf "
                         "is derived from it), not a generator")
@@ -158,8 +187,8 @@ def compress_params(gen_or_seed: int, params: Any, *, rank: int,
             groups.setdefault(_projection(path), []).append((i, path, leaf))
     out, report = params, {}
     for name, members in groups.items():
-        lws = [_maybe_compress(block_seed(gen_or_seed, i), leaf, rank,
-                               energy_keep, qr_impl)
+        lws = [_compress_leaf(gen_or_seed, i, leaf, rank, energy_keep,
+                              qr_impl)
                for i, _, leaf in members]
         if any(lw is None for lw in lws):
             report[name] = {"compressed": False}

@@ -1365,3 +1365,65 @@ def test_cuda_row_diagonal_matches_the_cpu():
         z = row_diagonal(seed, *rows, torch.complex128, dev).cpu()
         assert float((z - row_diagonal(seed, *rows, torch.complex128,
                                        "cpu")).abs().max()) <= 1e-15
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_matches_the_cpu_and_repeats():
+    """One SMOKE qwen2-moe layer's ``moe_ffn`` (24-token groups, 8 experts
+    top-4, the gated shared expert) in f32 on the card against the CPU on
+    the same weights and input: the routing (top-k, keep) equal, y and the
+    aux values within 1e-5 of the largest entry (f32 sums in another
+    order), and two card calls bit-equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as moe_mod
+    dev = _device()
+    cfg = get_smoke_config("qwen2_moe_a2_7b").replace(dtype="float32")
+    cpu = moe_mod.MoE(cfg).init_(torch.Generator().manual_seed(0))
+    card = moe_mod.MoE(cfg, device=dev)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        a.copy_(b)
+    x = torch.randn((4, 24, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, want_aux = moe_mod.moe_ffn(cpu, cfg, x)
+    got, aux = moe_mod.moe_ffn(card, cfg, x.to(dev))
+    again, aux2 = moe_mod.moe_ffn(card, cfg, x.to(dev))
+    assert torch.equal(got, again) and all(
+        torch.equal(a, b) for a, b in zip(aux, aux2))
+    assert _rel(got.cpu(), want) <= 1e-5
+    for a, b in zip(aux, want_aux):
+        assert abs(float(a) - float(b)) <= 1e-5
+    C = moe_mod.moe_capacity(cfg, 24)
+    routing = []
+    for mod, t in ((cpu, x), (card, x.to(dev))):
+        _, _, top_i = moe_mod.route(mod, cfg, t)
+        _, keep = moe_mod.dispatch_indices(top_i.reshape(4, -1),
+                                           cfg.n_experts, C)
+        routing.append((top_i.cpu(), keep.cpu()))
+    assert torch.equal(routing[0][0], routing[1][0])
+    assert torch.equal(routing[0][1], routing[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_steps_repeat_bit_for_bit():
+    """Three SMOKE qwen2-moe steps (remat on, so each block's dispatch,
+    combine and their backward also run in the recompute) under the
+    step's deterministic mode: no error, and two runs from one seed give
+    the same losses, last MoE metrics and parameters, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.launch.train import train_loop
+    dev = _device()
+    cfg = get_smoke_config("qwen2_moe_a2_7b").replace(remat=True)
+    outs = []
+    for _ in range(2):
+        out = train_loop(cfg, TrainConfig(peak_lr=3e-3, warmup_steps=1,
+                                          total_steps=3),
+                         global_batch=4, seq_len=96, steps=3,
+                         log=lambda *a: None, device=dev)
+        outs.append((out["losses"],
+                     (out["final"]["moe_lb"], out["final"]["moe_drop"]),
+                     [p.detach().clone()
+                      for p in out["state"].params.parameters()]))
+    assert all(math.isfinite(v) for v in outs[0][0])
+    assert outs[0][:2] == outs[1][:2]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][2], outs[1][2]))

@@ -93,9 +93,17 @@ def test_config_dtypes_are_torch():
 
 
 def test_unported_families_raise():
-    cfg = tcfgs.get_smoke_config("granite_3_2b").replace(moe=True)
+    """MoE on every other layer (jamba's period) and a hybrid mixer still
+    raise; MoE on every layer is ported (tests/test_torch_moe.py)."""
+    cfg = tcfgs.get_smoke_config("granite_3_2b").replace(
+        moe=True, moe_layer_period=2, n_experts=4, n_experts_active=2,
+        moe_d_ff=32)
     with pytest.raises(NotImplementedError, match="MoE"):
         tmodels.init_params(0, cfg, device="cpu")
+    hybrid = tcfgs.get_smoke_config("granite_3_2b").replace(
+        family="hybrid", attn_layer_period=2)
+    with pytest.raises(NotImplementedError, match="Mamba"):
+        tmodels.init_params(0, hybrid, device="cpu")
 
 
 # ------------------------------------------------------------ components

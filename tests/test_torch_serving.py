@@ -420,15 +420,38 @@ def test_compress_params_factor_low_rank():
 
 
 def test_compress_takes_only_2d_leaves():
-    """The port's weights are 2-D (one a layer); a stacked leaf is not a
-    target, and neither is a leaf of another name."""
-    W_lr, _ = _planted_tree(np.random.default_rng(1))
-    tree = {"w_up": torch.from_numpy(np.stack([W_lr, W_lr])),
-            "scale": torch.from_numpy(W_lr), "w_down": torch.from_numpy(W_lr)}
-    assert low_rank_targets(tree) == ["w_down"]
+    """A stacked leaf (the port's (E, m, n) expert stacks) is a target and
+    is factored one slice at a time, all slices or none, as the reference
+    factors its stacked leaves: B (E, m, k), P (E, k, n); one full-rank
+    slice keeps the whole stack dense.  A leaf of another name is skipped
+    whatever its shape."""
+    rng = np.random.default_rng(1)
+    W_lr, wo = _planted_tree(rng)
+    W2, _ = _planted_tree(rng)
+    tree = {"w_up": torch.from_numpy(np.stack([W_lr, W2])),
+            "w_gate": torch.from_numpy(np.stack([W_lr, wo.T.copy()])),
+            "scale": torch.from_numpy(np.stack([W_lr, W_lr])),
+            "w_down": torch.from_numpy(W_lr)}
+    assert low_rank_targets(tree) == ["w_up", "w_gate", "w_down"]
     out, report = compress_params(0, tree, rank=8, energy_keep=0.9)
-    assert list(report) == ["w_down"] and report["w_down"]["compressed"]
-    assert out["w_up"] is tree["w_up"] and out["scale"] is tree["scale"]
+    assert list(report) == ["w_up", "w_gate", "w_down"]
+    assert report["w_up"]["compressed"] and report["w_down"]["compressed"]
+    assert not report["w_gate"]["compressed"]
+    lw = out["w_up"]
+    assert tuple(lw.B.shape) == (2, 64, 8) and tuple(lw.P.shape) == (2, 8, 96)
+    assert lw.shape == (2, 64, 96)
+    np.testing.assert_allclose(lw.materialize().numpy(),
+                               np.stack([W_lr, W2]), atol=1e-3)
+    assert report["w_up"]["dense_elems"] == 2 * 64 * 96
+    assert report["w_up"]["factored_elems"] == 2 * 8 * (64 + 96)
+    assert out["w_gate"] is tree["w_gate"] and out["scale"] is tree["scale"]
+    jout, jrep = jcompress.compress_params(
+        jax.random.key(0),
+        {k: jnp.asarray(v.numpy()) for k, v in tree.items()},
+        rank=8, energy_keep=0.9)
+    assert {k.strip("[]'"): r["compressed"] for k, r in jrep.items()} == \
+        {k: r["compressed"] for k, r in report.items()}
+    assert compression_report(jrep) == compression_report(report)
 
 
 def test_compress_module_reports_every_projection(models):
