@@ -34,8 +34,9 @@ in order, printing one JSON line per phase:
                  panel_gram's column split and n = 0 identities (bit for
                  bit); flash at granite's prefill (32 heads, hd 64,
                  S=T=4000, causal), danube's (32 heads, hd 80,
-                 S=T=6144, window 4096) and qwen2-moe's (16 heads, hd 128,
-                 S=T=4000, causal), a non-causal, a ragged S != T and
+                 S=T=6144, window 4096), qwen2-moe's (16 heads, hd 128,
+                 S=T=4000, causal) and jamba's (32 heads, hd 128,
+                 S=T=4096, causal), a non-causal, a ragged S != T and
                  an hd 256 case, q f32 with k/v bf16 and all f32, each
                  also with its lse (o bit-equal, lse against flash_ref's);
   3. main     -- ``rid(seed, A, 400, sketch_kind="gaussian")`` on a real
@@ -138,6 +139,24 @@ in order, printing one JSON line per phase:
                  the first layer's attention against ref.py; (e) qwen2-moe
                  at 2 layers, 1 x 4096 tokens, 2 steps through
                  ``launch.steps``, twice: bit-equal, finite, grad norm > 0;
+  hybrid      -- (a) jamba-v0.1-52b at full width, depth cut to one
+                 pattern period of 8 layers (7 Mamba, 1 attention, MoE on
+                 4; 1.326e10 parameters, 53.1 GB in f32, random weights
+                 from a seed) through the serve phase's engine: 5 prompts
+                 of at most 128 tokens and one of 4096, flash launched once
+                 (the long prompt's one attention layer) and nothing else,
+                 tokens per second, the long prefill, the mean decode step,
+                 peak memory, and one prefill and one batch-4 decode step
+                 under ``torch.profiler`` (flash, the Mamba scan with its
+                 launches, the MoE weight casts, the expert SwiGLU and the
+                 rest); (b) one Mamba layer on 4096 tokens in f32 on the
+                 card and the CPU within 1e-4, two card calls bit-equal;
+                 (c) a 120-token prefill and 8 decode steps against
+                 ``forward`` over the 128 tokens (f32, dropless MoE) within
+                 1e-4; (d) a 4000-token prompt (not a multiple of the
+                 scan's 128-token chunk) refused with a ValueError, by
+                 ``prefill`` and by the engine, which serves the next
+                 request;
   analysis    -- ``repro_torch.analysis.run_all(device="cuda")`` on a
                  one-rank NCCL group (what ``python -m repro_torch.analysis``
                  runs): 0 new findings against the empty baseline, every
@@ -160,7 +179,8 @@ in order, printing one JSON line per phase:
                  bench_dmma's least of two rounds, and under
                  ``torch.profiler`` their kernels' device time and device
                  span a call, with the SM clock)
-                 (flash at granite's and qwen2-moe's serve shapes, beside
+                 (flash at granite's, qwen2-moe's and jamba's serve
+                 shapes, beside
                  ``F.scaled_dot_product_attention``, its bound two TF32
                  passes on the tensor cores; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
@@ -261,14 +281,16 @@ PEAK_BF16_FLOPS = 989e12
 FLASH_TOL = 1e-5
 # (case, B*H, S, T, hd, causal, window): the prefill shapes of granite-3-2b
 # and h2o-danube-1.8b, a non-causal and a ragged case, and qwen2-moe-a2.7b's
-# prefill (the last; its inputs come from a generator of their own, so the
-# shared generator's draws for the main path are the earlier cases').
+# and jamba-v0.1-52b's prefills (the last two; their inputs come from
+# generators of their own, so the shared generator's draws for the main path
+# are the earlier cases').
 FLASH_CASES = (("granite prefill", 32, 4000, 4000, 64, True, None),
                ("danube prefill", 32, 6144, 6144, 80, True, 4096),
                ("non-causal", 32, 1024, 1024, 64, False, None),
                ("ragged", 32, 1500, 3000, 80, True, None),
                ("hd 256", 8, 1024, 1024, 256, True, None),
-               ("qwen2-moe prefill", 16, 4000, 4000, 128, True, None))
+               ("qwen2-moe prefill", 16, 4000, 4000, 128, True, None),
+               ("jamba prefill", 32, 4096, 4096, 128, True, None))
 # The serve phase: granite-3-2b's engine, its long prompts and the chunked
 # cross-check.  Tolerance of the one-shot (flash) against the chunked
 # (dense) prefill's last-token logits, both in bf16 compute through 40
@@ -291,6 +313,19 @@ SWA_LAYERS, SWA_PROMPT, SWA_STEPS = 4, 6144, 16
 MOE_LAYER_TOKENS, MOE_TOL = 512, 1e-4
 MOE_CUT_LAYERS, MOE_PROMPT, MOE_STEPS = 4, 4000, 16
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 4096, 2
+# The hybrid phase: jamba-v0.1-52b at full width, one pattern period of
+# HYBRID_LAYERS = 8 layers (7 Mamba, 1 attention, MoE on 4; 1.326e10
+# parameters, 53.1 GB in f32: 32 layers are 206 GB), through the serve
+# phase's engine: one HYBRID_LONG-token prompt and HYBRID_SHORTS prompts of
+# at most 128 tokens.  One Mamba layer on HYBRID_LONG tokens in f32, card
+# against CPU; a prefill of HYBRID_PREFIX tokens and HYBRID_STEPS decode
+# steps against forward over the 128 tokens (one chunk of the scan) in f32
+# at a dropless MoE capacity; both within HYBRID_TOL of the largest entry
+# (f32 sums in another order over d_model 4096 and d_inner 8192; the same
+# doubling scan on both sides).  A HYBRID_OFF-token prompt, over 128 and
+# not a multiple of it, is refused as the reference refuses it.
+HYBRID_LAYERS, HYBRID_LONG, HYBRID_SHORTS = 8, 4096, 5
+HYBRID_PREFIX, HYBRID_STEPS, HYBRID_OFF, HYBRID_TOL = 120, 8, 4000, 1e-4
 # The train phase: granite-3-2b at full width and depth, batch 2 x 4096
 # (train_4k's length), 5 steps; (c) at 2 layers.  Tolerance of the
 # Function's gradients against autograd through flash_ref, relative to the
@@ -395,9 +430,10 @@ def main() -> int:
             LAUNCHES as FLASH_LAUNCHES)
         from repro_torch.kernels.flash.kernel import flash_attention_kernel
         from repro_torch.kernels.flash.ref import flash_ref
-        from repro_torch.models import (decode_step, init_caches, init_params,
-                                        prefill, prefill_chunk)
+        from repro_torch.models import (decode_step, forward, init_caches,
+                                        init_params, prefill, prefill_chunk)
         from repro_torch.models import attention as attn_mod
+        from repro_torch.models import mamba as mamba_mod
         from repro_torch.models import moe as moe_mod
         from repro_torch.models import transformer as tr_mod
         from repro_torch.models.norms import rmsnorm
@@ -1075,8 +1111,11 @@ def main() -> int:
     flash_err = None            # max abs error at granite's shape, f32/bf16
     gen_moe_case = torch.Generator(device=dev)
     gen_moe_case.manual_seed(SEED + 26)
+    gen_jamba_case = torch.Generator(device=dev)
+    gen_jamba_case.manual_seed(SEED + 30)
     for case, bh, s, t, hd, causal, window in FLASH_CASES:
-        g_case = gen_moe_case if case == "qwen2-moe prefill" else gen
+        g_case = {"qwen2-moe prefill": gen_moe_case,
+                  "jamba prefill": gen_jamba_case}.get(case, gen)
         for qdt, kvdt in ((torch.float32, torch.bfloat16),
                           (torch.float32, torch.float32)):
             q = torch.randn((bh, s, hd), generator=g_case,
@@ -2532,6 +2571,250 @@ def main() -> int:
               if name != "flash"), f"moe (e): other kernels "
           f"{train_launches_moe}")
 
+    # ------------- hybrid: jamba-v0.1-52b at full width, one pattern period
+    # of 8 layers (own generators).  Phase moe freed its models above.
+    gen_hy = torch.Generator(device=dev)
+    gen_hy.manual_seed(SEED + 29)
+    rng_hy = np.random.default_rng(SEED + 29)
+
+    def profiled_ranges(fn, ranges) -> dict:
+        """One call of ``fn`` under ``torch.profiler``: busy and idle share,
+        the flash kernel's device time, and for each profiler range in
+        ``ranges`` the device time and count of the kernels that start
+        inside its spans on the device timeline (one stream, so a kernel
+        belongs to the range whose span holds it) and its share of busy
+        time; the rest is busy time outside them all."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = prof.events()
+        kern = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                for e in evs if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+        busy = sum(ms for _, _, ms in kern)
+        check(busy > 0, "hybrid trace: no device time recorded")
+        out = {"traced_wall_s": wall, "device_busy_ms": busy,
+               "device_idle_share": 1 - busy / (1e3 * wall),
+               "flash_ms": sum(ms for name, _, ms in kern
+                               if "flash_fwd_kernel" in name)}
+        inside = out["flash_ms"]
+        for rname in ranges:
+            spans = [(e.time_range.start, e.time_range.end) for e in evs
+                     if e.name == rname and e.device_type == DeviceType.CUDA
+                     and e.is_user_annotation]
+            ks = [ms for _, t, ms in kern
+                  if any(lo <= t < hi for lo, hi in spans)]
+            inside += sum(ks)
+            out[rname] = {"ms": sum(ks), "launches": len(ks),
+                          "calls": sum(1 for e in evs if e.name == rname
+                                       and e.device_type == DeviceType.CPU),
+                          "device_spans": len(spans),
+                          "share_of_busy": sum(ks) / busy}
+        out["rest_ms"] = busy - inside
+        top = {}
+        for name, _, ms in kern:
+            t = top.setdefault(name[:80], [0.0, 0])
+            t[0] += ms
+            t[1] += 1
+        out["top_kernels"] = [{"name": k, "ms": v[0], "count": v[1]}
+                              for k, v in sorted(top.items(),
+                                                 key=lambda r: -r[1][0])[:12]]
+        return out
+
+    # (a) jamba at full width and 8 layers through the serve phase's engine.
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=HYBRID_LAYERS)
+    n_attn = len(cfg.attn_layers)
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = [rng_hy.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng_hy.integers(8, 129, HYBRID_SHORTS)]
+    prompts.append(rng_hy.integers(0, cfg.vocab_size,
+                                   HYBRID_LONG).astype(np.int32))
+    eng = ServeEngine(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN)
+    reqs = [GenerationRequest(request_id=i, prompt=p,
+                              max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tracing(tracer):
+        eng.run()
+    torch.cuda.synchronize()
+    hybrid_wall = time.perf_counter() - t0
+    hybrid_launches = read_counts()
+    hybrid_peak = torch.cuda.max_memory_allocated()
+    long_prefill = [sp.dur for sp in tracer.spans if sp.name == "serve.prefill"
+                    and sp.attrs.get("prompt_tokens") == HYBRID_LONG]
+    decode_s = [sp.dur for sp in tracer.spans if sp.name == "serve.decode"]
+    tokens = sum(len(r.output) for r in reqs)
+    n_long = sum(len(p) > attn_mod.BLOCKWISE_THRESHOLD for p in prompts)
+    statuses = [(r.status, len(r.output)) for r in reqs]
+    del eng, reqs, tracer
+    torch.cuda.empty_cache()
+    # The long prompt once more, profiled, then a profiled batch-4 decode
+    # step on the engine's shared caches.
+    toks = torch.as_tensor(prompts[-1], dtype=torch.int64, device=dev)[None]
+    lg, _ = prefill(model, cfg, toks, max_len=SERVE_LEN)
+    nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    finite = bool(torch.isfinite(lg).all())
+    del lg
+    hy_ranges = ("mamba.scan", "moe.casts", "moe.experts")
+    prefill_trace = profiled_ranges(
+        lambda: prefill(model, cfg, toks, max_len=SERVE_LEN), hy_ranges)
+    batch = init_caches(cfg, SERVE_BATCH, SERVE_LEN, dev)
+    step_toks = nxt.expand(SERVE_BATCH, 1).contiguous()
+    step_pos = torch.full((SERVE_BATCH,), toks.shape[1], device=dev)
+    decode_step(model, cfg, step_toks, step_pos, batch)
+    decode_trace = profiled_ranges(
+        lambda: decode_step(model, cfg, step_toks, step_pos, batch),
+        hy_ranges)
+    del batch, toks, step_toks, step_pos
+    torch.cuda.empty_cache()
+    emit({"phase": "hybrid", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers,
+          "reduced": f"depth cut from 32 to {cfg.n_layers} layers, one "
+                     f"pattern period (32 layers are 2.06e11 B in f32)",
+          "pattern": [f"{k}{'+moe' if m else ''}"
+                      for k, m in tr_mod.pattern(cfg)],
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "d_state": cfg.mamba_d_state, "n_experts": cfg.n_experts,
+          "top_k": cfg.n_experts_active, "moe_d_ff": cfg.moe_d_ff,
+          "params": cfg.param_count(),
+          "param_numel": sum(p.numel() for p in model.parameters()),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "memory_allocated_at_start": mem_start, "init_s": init_s,
+          "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, "wall_s": hybrid_wall,
+          "generated_tokens": tokens, "tokens_per_s": tokens / hybrid_wall,
+          "prefill_long_s": long_prefill[0] if long_prefill else None,
+          "decode_steps": len(decode_s),
+          "decode_step_mean_s": (sum(decode_s) / len(decode_s)
+                                 if decode_s else None),
+          "max_memory_allocated": hybrid_peak, "launches": hybrid_launches,
+          "prefill_trace": prefill_trace, "decode_step_batch": SERVE_BATCH,
+          "decode_step_trace": decode_trace, "finite": finite})
+    check(all(st == "done" and n == SERVE_NEW for st, n in statuses),
+          f"hybrid (a): {statuses}")
+    check(hybrid_launches["flash"] == n_long * n_attn == 1,
+          f"hybrid (a): flash launched {hybrid_launches['flash']} times, "
+          f"expected {n_long} x {n_attn}")
+    check(all(v == 0 for name, v in hybrid_launches.items()
+              if name != "flash"), f"hybrid (a): other kernels launched "
+          f"{hybrid_launches}")
+    check(len(long_prefill) == 1, "hybrid (a): no prefill span of the long "
+          "prompt")
+    check(finite, "hybrid (a): logits not finite")
+    n_scans = {key: tr["mamba.scan"]["device_spans"] for key, tr in (
+        ("prefill", prefill_trace), ("decode", decode_trace))}
+    check(set(n_scans.values()) == {cfg.n_layers - n_attn},
+          f"hybrid (a): Mamba scans on the device {n_scans}")
+    check(prefill_trace["rest_ms"] >= 0 and decode_trace["rest_ms"] >= 0,
+          "hybrid (a): the ranges' kernels exceed the busy time")
+
+    # (b) One Mamba layer at full width on HYBRID_LONG tokens in f32, on
+    # the card (twice) and on the CPU with the same weights and input.
+    lcfg = cfg.replace(dtype="float32")
+    layer = model.blocks[0].mixer
+    x = torch.randn((1, HYBRID_LONG, cfg.d_model), generator=gen_hy,
+                    device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y1 = mamba_mod.mamba_forward(layer, lcfg, x)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    y2 = mamba_mod.mamba_forward(layer, lcfg, x)
+    y_bf16 = mamba_mod.mamba_forward(layer, cfg, x.to(cfg.compute_dtype))
+    cpu_layer = mamba_mod.Mamba(lcfg)
+    for a, b in zip(cpu_layer.parameters(), layer.parameters()):
+        a.copy_(b.cpu())
+    t0 = time.perf_counter()
+    y_cpu = mamba_mod.mamba_forward(cpu_layer, lcfg, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    y_err = rel_err(y1.cpu(), y_cpu)
+    repeat = bool(torch.equal(y1, y2))
+    emit({"phase": "hybrid", "part": "b", "arch": cfg.name, "layer": 0,
+          "tokens": HYBRID_LONG, "chunk": mamba_mod.MAMBA_CHUNK,
+          "compute_dtype": "float32", "y_rel_err": y_err, "tol": HYBRID_TOL,
+          "card_repeat_bit_equal": repeat, "card_first_s": card_s,
+          "cpu_s": cpu_s,
+          "bf16_vs_f32_compute_rel_err": rel_err(y_bf16.float(), y1)})
+    check(y_err <= HYBRID_TOL, f"hybrid (b): y {y_err} beyond {HYBRID_TOL}")
+    check(repeat, "hybrid (b): two card calls differ")
+    del layer, cpu_layer, x, y1, y2, y_bf16, y_cpu
+    torch.cuda.empty_cache()
+
+    # (c) Prefill of HYBRID_PREFIX tokens and HYBRID_STEPS teacher-forced
+    # decode steps against forward over all of them (128: one chunk), in
+    # f32 at a dropless MoE capacity (factor 8, as the reference's tests),
+    # where neither the groups nor the chunks change the arithmetic.
+    ccfg = cfg.replace(dtype="float32", moe_capacity_factor=8.0)
+    n_all = HYBRID_PREFIX + HYBRID_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, n_all), generator=gen_hy,
+                         device=dev)
+    with torch.no_grad():
+        full, aux = forward(model, ccfg, toks)
+    lg, caches = prefill(model, ccfg, toks[:, :HYBRID_PREFIX], max_len=n_all)
+    step_err = [rel_err(lg[:, 0], full[:, HYBRID_PREFIX - 1])]
+    for i in range(HYBRID_STEPS):
+        p = HYBRID_PREFIX + i
+        lg, caches = decode_step(model, ccfg, toks[:, p:p + 1], p, caches)
+        step_err.append(rel_err(lg[:, 0], full[:, p]))
+    emit({"phase": "hybrid", "part": "c", "arch": cfg.name,
+          "prefix_tokens": HYBRID_PREFIX, "decode_steps": HYBRID_STEPS,
+          "compute_dtype": "float32", "moe_capacity_factor": 8.0,
+          "forward_moe_drop": float(aux.dropped_fraction),
+          "rel_err_by_step": step_err, "tol": HYBRID_TOL,
+          "finite": bool(torch.isfinite(full).all())})
+    check(float(aux.dropped_fraction) == 0.0, "hybrid (c): forward dropped "
+          "pairs at capacity factor 8")
+    check(max(step_err) <= HYBRID_TOL, f"hybrid (c): prefill + decode vs "
+          f"forward {step_err} beyond {HYBRID_TOL}")
+    del full, lg, caches, toks
+    torch.cuda.empty_cache()
+
+    # (d) A prompt over 128 tokens and not a multiple of 128: prefill
+    # raises the ValueError that names the rule, and the engine fails that
+    # request alone and serves the next.
+    bad = rng_hy.integers(0, cfg.vocab_size, HYBRID_OFF).astype(np.int32)
+    try:
+        prefill(model, cfg, torch.as_tensor(bad, device=dev)[None],
+                max_len=SERVE_LEN)
+        refused = "nothing raised"
+    except Exception as e:              # noqa: BLE001 — reported, gated
+        refused = f"{type(e).__name__}: {e}"
+    eng = ServeEngine(cfg, model, max_batch=1, max_len=SERVE_LEN)
+    reqs = [GenerationRequest(request_id=0, prompt=bad, max_new_tokens=2),
+            GenerationRequest(request_id=1, prompt=prompts[0],
+                              max_new_tokens=2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    emit({"phase": "hybrid", "part": "d", "prompt_tokens": HYBRID_OFF,
+          "prefill_raised": refused,
+          "engine": [{"status": r.status, "error": r.error,
+                      "new_tokens": len(r.output)} for r in reqs]})
+    check(refused.startswith("ValueError") and "multiple" in refused,
+          f"hybrid (d): prefill of {HYBRID_OFF} tokens gave {refused}")
+    check(reqs[0].status == "failed" and reqs[0].error.startswith(
+        "ValueError") and reqs[1].status == "done",
+          f"hybrid (d): engine {[(r.status, r.error) for r in reqs]}")
+    del eng, reqs, model
+    torch.cuda.empty_cache()
+
     # ---------- analysis: python -m repro_torch.analysis's run on the card
     # run_all: the dataflow entries on a one-rank NCCL group, the kernel
     # contracts held to the C side, the lint, the controls (big_copy's
@@ -2990,6 +3273,37 @@ def main() -> int:
     del q, k, v, k4, v4
     torch.cuda.empty_cache()
 
+    # flash at jamba-v0.1-52b's 4096-token prefill (32 heads, hd 128,
+    # causal), from a generator of its own; launches from phase hybrid (a).
+    gen_fj = torch.Generator(device=dev)
+    gen_fj.manual_seed(SEED + 31)
+    bh, S, hd = 32, HYBRID_LONG, 128
+    q = torch.randn((bh, S, hd), generator=gen_fj, device=dev) * hd ** -0.5
+    k, v = (torch.randn((bh, S, hd), generator=gen_fj,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    k4, v4 = (x.float()[None] for x in (k, v))
+    pairs = bh * live_pairs(S, S, True, None)
+    jamba_flops = 4.0 * hd * pairs
+    jamba_bytes = bh * S * hd * (4 + 2 + 2 + 4)
+    t_flop = 2 * jamba_flops / PEAK_TF32_FLOPS
+    t_byte = jamba_bytes / HBM_BYTES_PER_S
+    jamba_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v), 20)
+    emit({"phase": "times", "kernel": "flash", "case": "jamba prefill",
+          "bh": bh, "s": S, "t": S, "hd": hd, "causal": True,
+          "q_dtype": "float32", "kv_dtype": "bfloat16",
+          "launches_in_phase_hybrid_a": hybrid_launches["flash"],
+          "live_pairs": pairs, "flops": jamba_flops, "bytes": jamba_bytes,
+          "peak": "TF32 tensor 495 TFLOP/s, 2 passes", "ms": jamba_ms,
+          "tflops": jamba_flops / jamba_ms / 1e9,
+          "plain_ms": cuda_ms(lambda: flash_ref(q, k, v), 3),
+          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+              q[None], k4, v4, is_causal=True, scale=1.0), 20),
+          "bound_ms": 1e3 * max(t_flop, t_byte),
+          "bound_by": "operations" if t_flop >= t_byte else "bytes",
+          "ffma_bound_ms": 1e3 * max(jamba_flops / PEAK_F32_FLOPS, t_byte)})
+    del q, k, v, k4, v4
+    torch.cuda.empty_cache()
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -3308,7 +3622,8 @@ def main() -> int:
               for c in compressed.values()),
           "train (c): compressed grad norm")
 
-    flash["launches"] += train_launches["flash"] + moe_flash_launches
+    flash["launches"] += (train_launches["flash"] + moe_flash_launches
+                          + hybrid_launches["flash"])
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
                       trisolve, proj, deflate, flash, copy]})

@@ -32,9 +32,9 @@ ARCHS = (
 )
 
 # The architectures the port's models run so far: the attention-only text
-# stacks, dense or MoE.
+# stacks, dense or MoE, and the hybrid Mamba + attention stack.
 PORTED = ("granite_3_2b", "qwen3_8b", "h2o_danube_1_8b", "qwen2_7b",
-          "phi35_moe", "qwen2_moe_a2_7b")
+          "phi35_moe", "qwen2_moe_a2_7b", "jamba_v01_52b")
 
 # CLI aliases (assignment ids -> module names)
 ALIASES = {

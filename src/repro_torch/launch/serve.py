@@ -1,6 +1,7 @@
 """Serving driver: batched requests through the port's ServeEngine,
 optionally with RID-compressed weights (counterpart of
-``repro.launch.serve``; the same flags and defaults, plus ``--device``).
+``repro.launch.serve``; the same flags and defaults, plus ``--device`` and
+``--layers``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --smoke --device cpu --requests 8 --new-tokens 16 [--rid-rank 32]
@@ -40,10 +41,16 @@ def main(argv=None):
                     help="prefill long prompts in pieces of this many "
                          "tokens, interleaved with decode steps "
                          "(0 = one-shot prefill; attention-only archs)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the "
+                         "config's; jamba-v0.1-52b fits one card at 8, one "
+                         "pattern period)")
     args = ap.parse_args(argv)
 
     device = check_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     params = init_params(0, cfg, device=device)
     if args.rid_rank:
         params, report = compress_params(1, params, rank=args.rid_rank,

@@ -152,9 +152,10 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
 
     # Expert SwiGLU batched over E.  The stacks are cast to the compute
     # dtype on every call, as the reference does.  The profiler range
-    # "moe.experts" holds the three batched GEMMs and the gate (the casts
-    # stay outside it).
-    wg, wu, wd = (p.w_gate.to(cdt), p.w_up.to(cdt), p.w_down.to(cdt))
+    # "moe.casts" holds those casts, "moe.experts" the three batched GEMMs
+    # and the gate.
+    with record_function("moe.casts"):
+        wg, wu, wd = (p.w_gate.to(cdt), p.w_up.to(cdt), p.w_down.to(cdt))
     with record_function("moe.experts"):
         h = F.silu(torch.einsum("gecd,edf->gecf", buf, wg)) \
             * torch.einsum("gecd,edf->gecf", buf, wu)

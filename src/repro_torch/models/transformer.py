@@ -1,28 +1,36 @@
-"""The LM's attention-only path, dense or MoE (counterpart of
-``repro.models.transformer``).
+"""The LM: attention-only stacks, dense or MoE, and the hybrid Mamba +
+attention stack (counterpart of ``repro.models.transformer``).
 
-The reference stacks each pattern position's parameters across layers and
-walks the stack with ``lax.scan``; here the model is an ``nn.Module``, a
-``Transformer`` with one ``Block`` per layer, walked by a Python loop.
-Parameter names follow the reference's tree (``embed.tok``,
-``blocks.<i>.ln1.scale``, ``blocks.<i>.mixer.wq``, ``blocks.<i>.mlp.w_up``
-or ``blocks.<i>.moe.w_up``, ``final_norm.scale``, ``lm_head``), so
-``params_from_jax`` and ``params_to_numpy`` carry weights across by name.
+The reference stacks each pattern position's parameters across its
+superblocks and walks the stack with ``lax.scan``; here the model is an
+``nn.Module``, a ``Transformer`` with one ``Block`` per layer, walked by a
+Python loop.  Layer ``i``'s mixer is attention or Mamba as
+``cfg.layer_kind(i)`` says, and its FFN is ``moe`` where
+``cfg.layer_is_moe(i)``, else ``mlp`` (jamba: attention at ``i % 8 ==
+4``, MoE at ``i % 2 == 1``).  Parameter names follow the reference's tree
+(``embed.tok``, ``blocks.<i>.ln1.scale``, ``blocks.<i>.mixer.wq`` or
+``blocks.<i>.mixer.in_proj``, ``blocks.<i>.mlp.w_up`` or
+``blocks.<i>.moe.w_up``, ``final_norm.scale``, ``lm_head``), so
+``params_from_jax`` and ``params_to_numpy`` carry weights across by name:
+the reference's pattern position ``i % p`` at superblock ``i // p`` is
+the port's layer ``i``, for a pattern period ``p`` (``pattern_period``).
 
 Public surface:
   init_params                       -- random init from a seed or generator
   forward                           -- logits over a full sequence
   loss_fn                           -- next-token CE (+ z-loss) for training
-  prefill / prefill_chunk / decode_step -- with per-layer KV caches
+  prefill / prefill_chunk / decode_step -- with per-layer caches: a KVCache
+                                       per attention layer, a MambaState
+                                       per Mamba layer
   init_caches, supports_chunked_prefill
+  layer_signature, pattern_period, pattern, n_superblocks
   params_from_jax / params_to_numpy -- the reference's tree <-> the module
 
-Mamba and xLSTM mixers, MoE on some layers only (jamba's period), the
-encoder-decoder (whisper) and vision (qwen2-vl) frontends and M-RoPE are
-not ported yet: their configs raise ``NotImplementedError`` here.  The
-serving functions run under ``torch.inference_mode``; ``prefill_chunk``
-and ``decode_step`` write into the caches they are given, in place, and
-return them.
+xLSTM mixers, the encoder-decoder (whisper) and vision (qwen2-vl)
+frontends and M-RoPE are not ported yet: their configs raise
+``NotImplementedError`` here.  The serving functions run under
+``torch.inference_mode``; ``prefill_chunk`` and ``decode_step`` write
+into the caches they are given, in place, and return them.
 
 Parameters are created with ``requires_grad=False``: serving needs no
 graph.  Training turns them on (``launch.steps.init_train_state``);
@@ -41,8 +49,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.rng import as_generator, check_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from .attention import Attention, KVCache
-from .config import ModelConfig
+from .config import ATTN, MAMBA, ModelConfig
+from .mamba import Mamba
 from .mlp import SwiGLU, mlp
 from .moe import MoE, MoEAux, moe_ffn
 from .norms import RMSNorm, rmsnorm
@@ -52,7 +62,8 @@ __all__ = ["Block", "Transformer", "MoEAux", "init_params", "forward",
            "loss_fn", "MOE_AUX_COEF", "Z_LOSS_COEF",
            "embed_tokens", "lm_logits", "init_caches", "prefill",
            "supports_chunked_prefill", "prefill_chunk", "decode_step",
-           "params_from_jax", "params_to_numpy", "check_supported"]
+           "params_from_jax", "params_to_numpy", "check_supported",
+           "layer_signature", "pattern_period", "pattern", "n_superblocks"]
 
 
 MOE_AUX_COEF = 0.01
@@ -62,10 +73,9 @@ Z_LOSS_COEF = 1e-4
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's models do not run yet."""
     missing = []
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.n_layers)):
-        missing.append("Mamba/xLSTM mixers")
-    if cfg.moe and cfg.moe_layer_period != 1:
-        missing.append("MoE on every moe_layer_period-th layer only")
+    if any(cfg.layer_kind(i) not in (ATTN, MAMBA)
+           for i in range(cfg.n_layers)):
+        missing.append("xLSTM mixers")
     if cfg.encdec:
         missing.append("the encoder-decoder (whisper) frontend")
     if cfg.family == "vlm" or cfg.mrope:
@@ -74,18 +84,47 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"arch {cfg.name!r} needs {', '.join(missing)}, which a later "
             f"slice of the port brings (ROADMAP Queue A item 3); the port "
-            f"runs attention-only stacks, MoE on every layer or none, so far")
+            f"runs attention and Mamba mixers, dense or MoE, so far")
+
+
+# ---------------------------------------------------------------- pattern
+
+def layer_signature(cfg: ModelConfig, i: int) -> tuple[str, bool]:
+    return (cfg.layer_kind(i), cfg.layer_is_moe(i))
+
+
+def pattern_period(cfg: ModelConfig) -> int:
+    """The least ``p`` dividing ``n_layers`` with every layer's signature
+    that of layer ``i % p``: the reference's stacking period."""
+    sigs = [layer_signature(cfg, i) for i in range(cfg.n_layers)]
+    for p in range(1, cfg.n_layers + 1):
+        if cfg.n_layers % p == 0 and all(
+                sigs[i] == sigs[i % p] for i in range(cfg.n_layers)):
+            return p
+    return cfg.n_layers
+
+
+def pattern(cfg: ModelConfig) -> tuple[tuple[str, bool], ...]:
+    p = pattern_period(cfg)
+    return tuple(layer_signature(cfg, i) for i in range(p))
+
+
+def n_superblocks(cfg: ModelConfig) -> int:
+    return cfg.n_layers // pattern_period(cfg)
 
 
 class Block(nn.Module):
-    """Layer ``i``: ``ln1``, the attention ``mixer``, ``ln2``, and the FFN:
-    ``moe`` where ``cfg.layer_is_moe(i)``, else ``mlp``."""
+    """Layer ``i``: ``ln1``, the ``mixer`` (``Attention``, or ``Mamba``
+    where ``cfg.layer_kind(i)`` is Mamba), ``ln2``, and the FFN: ``moe``
+    where ``cfg.layer_is_moe(i)``, else ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, i: int, *, device=None):
         super().__init__()
         pdt = cfg.params_dtype
         self.ln1 = RMSNorm(cfg.d_model, pdt, device)
-        self.mixer = Attention(cfg, device=device)
+        self.mixer = (Mamba(cfg, device=device)
+                      if cfg.layer_kind(i) == MAMBA
+                      else Attention(cfg, device=device))
         self.ln2 = RMSNorm(cfg.d_model, pdt, device)
         if cfg.layer_is_moe(i):
             self.moe = MoE(cfg, device=device)
@@ -180,8 +219,11 @@ def _ffn(cfg: ModelConfig, bp: Block, x, group_size=None):
 
 
 def _block_forward(cfg: ModelConfig, bp: Block, x, cos, sin):
-    h = attn_mod.attention(bp.mixer, cfg, _norm(cfg, bp.ln1, x), cos, sin,
-                           causal=True)
+    h = _norm(cfg, bp.ln1, x)
+    if isinstance(bp.mixer, Mamba):
+        h = mamba_mod.mamba_forward(bp.mixer, cfg, h)
+    else:
+        h = attn_mod.attention(bp.mixer, cfg, h, cos, sin, causal=True)
     x = x + h
     h, aux = _ffn(cfg, bp, x)
     return x + h, aux
@@ -251,12 +293,16 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> dict:
-    """``{"self": [KVCache per layer]}``, each (batch, L, KV, hd) in the
-    compute dtype, ``L = max_len`` (capped at the window under SWA)."""
+    """``{"self": [one cache per layer]}``: for an attention layer a
+    KVCache, each (batch, L, KV, hd) in the compute dtype, ``L = max_len``
+    (capped at the window under SWA); for a Mamba layer a zero
+    MambaState (the reference's ``_cache_for``)."""
     check_supported(cfg)
     dev = check_device(device)
-    return {"self": [attn_mod.init_kv_cache(cfg, batch, max_len, dev)
-                     for _ in range(cfg.n_layers)]}
+    return {"self": [mamba_mod.mamba_init_state(cfg, batch, dev)
+                     if cfg.layer_kind(i) == MAMBA
+                     else attn_mod.init_kv_cache(cfg, batch, max_len, dev)
+                     for i in range(cfg.n_layers)]}
 
 
 # ---------------------------------------------------------------- prefill
@@ -296,8 +342,11 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
     cos, sin = _rope_tables(cfg, positions)
     caches = []
     for bp in params.blocks:
-        h, cache = _attn_prefill_cache(cfg, bp, _norm(cfg, bp.ln1, x), cos,
-                                       sin, max_len)
+        h = _norm(cfg, bp.ln1, x)
+        if isinstance(bp.mixer, Mamba):
+            h, cache = mamba_mod.mamba_prefill(bp.mixer, cfg, h)
+        else:
+            h, cache = _attn_prefill_cache(cfg, bp, h, cos, sin, max_len)
         x = x + h
         x = x + _ffn(cfg, bp, x)[0]
         caches.append(cache)
@@ -308,8 +357,10 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill needs every mixer to extend a positional cache in
     place: attention-only stacks, no encoder-decoder frontend, no mrope,
-    no sliding window (ring-buffer slots are position-dependent)."""
-    return (all(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    no sliding window (ring-buffer slots are position-dependent).
+    Recurrent mixers (Mamba) have only the full-sequence prefill and the
+    one-token decode, so a hybrid stack keeps the one-shot path."""
+    return (all(kind == ATTN for kind, _ in pattern(cfg))
             and not cfg.encdec and not cfg.mrope
             and cfg.sliding_window is None)
 
@@ -349,17 +400,20 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     """One token for every sequence in the batch.
 
     tokens: (B, 1) int; pos: (B,) int absolute position per sequence
-    (continuous batching); a scalar is broadcast.  Returns (logits
-    (B, 1, V), the caches, written in place)."""
+    (continuous batching); a scalar is broadcast; Mamba layers ignore it.
+    Returns (logits (B, 1, V), the caches, written in place)."""
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=tokens.device)
     pos = pos.expand(B) if pos.dim() == 0 else pos
     x = embed_tokens(params, cfg, tokens)
     cos, sin = _rope_tables(cfg, pos[:, None])
     for bp, cache in zip(params.blocks, caches["self"]):
-        h, _ = attn_mod.attention_decode(bp.mixer, cfg,
-                                         _norm(cfg, bp.ln1, x), pos, cache,
-                                         cos, sin)
+        h = _norm(cfg, bp.ln1, x)
+        if isinstance(bp.mixer, Mamba):
+            h, _ = mamba_mod.mamba_decode(bp.mixer, cfg, h, cache)
+        else:
+            h, _ = attn_mod.attention_decode(bp.mixer, cfg, h, pos, cache,
+                                             cos, sin)
         x = x + h
         # The whole batch is one dispatch group (the reference's).
         x = x + _ffn(cfg, bp, x, group_size=B)[0]
@@ -408,14 +462,17 @@ def params_from_jax(params_np: dict, cfg: ModelConfig,
     """The port's model holding the reference's weights.
 
     ``params_np``: the tree of ``repro.models.init_params`` with numpy
-    leaves (``jax.tree.map(np.asarray, params)``).  The leading
-    ``n_layers`` axis of ``params["blocks"][0]`` is unstacked into one
-    ``Block`` per layer; the embedding keeps its padded vocab."""
+    leaves (``jax.tree.map(np.asarray, params)``).  ``params["blocks"]``
+    holds one stacked tree per pattern position (``pattern_period``
+    ``p`` of them); layer ``i`` is index ``i // p`` of position ``i % p``.
+    The embedding keeps its padded vocab."""
     model = Transformer(cfg, device=check_device(device))
     blocks = params_np["blocks"]
-    if len(blocks) != 1:
+    p = pattern_period(cfg)
+    if len(blocks) != p:
         raise ValueError(f"params['blocks'] has {len(blocks)} pattern "
-                         f"positions; the port's stacks have 1")
+                         f"positions; arch {cfg.name!r} has a pattern "
+                         f"period of {p}")
     top = {"embed": {"tok": model.embed.tok},
            "final_norm": {"scale": model.final_norm.scale}}
     if not cfg.tie_embeddings:
@@ -423,7 +480,7 @@ def params_from_jax(params_np: dict, cfg: ModelConfig,
     pairs = list(_pairs(top, {k: v for k, v in params_np.items()
                               if k != "blocks"}, ""))
     for i, bp in enumerate(model.blocks):
-        pairs += _pairs(_block_leaves(bp), _take_layer(blocks[0], i),
+        pairs += _pairs(_block_leaves(bp), _take_layer(blocks[i % p], i // p),
                         f".blocks.{i}")
     for t, a, path in pairs:
         a = np.asarray(a)
@@ -440,8 +497,9 @@ def _take_layer(tree: dict, i: int) -> dict:
 
 
 def params_to_numpy(model: Transformer) -> dict:
-    """The inverse of ``params_from_jax``: the reference's tree (blocks
-    stacked along a leading layer axis) with f32 numpy leaves."""
+    """The inverse of ``params_from_jax``: the reference's tree (one tree
+    a pattern position, its layers stacked along a leading axis) with f32
+    numpy leaves."""
     def host(t):
         return t.detach().float().cpu().numpy()
 
@@ -451,8 +509,11 @@ def params_to_numpy(model: Transformer) -> dict:
                     else np.stack([host(t[k]) for t in trees]))
                 for k in first}
 
+    p = pattern_period(model.cfg)
     out = {"embed": {"tok": host(model.embed.tok)},
-           "blocks": (stack([_block_leaves(bp) for bp in model.blocks]),),
+           "blocks": tuple(stack([_block_leaves(bp)
+                                  for bp in model.blocks[pos::p]])
+                           for pos in range(p)),
            "final_norm": {"scale": host(model.final_norm.scale)}}
     if not model.cfg.tie_embeddings:
         out["lm_head"] = host(model.lm_head)

@@ -279,10 +279,12 @@ class ServeEngine:
             self._finish(req, "done")
             return False
         # Copy the single-sequence cache into this slot of the shared
-        # cache, in place (per layer: k and v of (batch, L, KV, hd)).
+        # cache, in place: per layer every leaf along its batch axis (k
+        # and v of (batch, L, KV, hd); a Mamba layer's conv window and
+        # SSM state).
         for full, one in zip(self._caches["self"], caches1["self"]):
-            full.k[slot:slot + 1].copy_(one.k)
-            full.v[slot:slot + 1].copy_(one.v)
+            for dst, src in zip(full, one):
+                dst[slot:slot + 1].copy_(src)
         req.status = "running"
         self._active[slot] = req
         self._pos[slot] = len(req.prompt)

@@ -29,7 +29,9 @@ from repro_torch.analysis.report import (Finding, Report,
                                          diff_against_baseline, load_baseline)
 from repro_torch.analysis.runner import run_controls
 from repro_torch.kernels.common import SMEM_BUDGET_BYTES
-from torch_ranks import failures, run_ranks
+from torch_ranks import failures, pin_threads, run_ranks
+
+pin_threads()
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "csrc"

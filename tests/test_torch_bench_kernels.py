@@ -27,6 +27,9 @@ from repro_torch.configs import SMALL_GRID  # noqa: E402
 from repro_torch.kernels.sketch_matmul import sketch_matmul  # noqa: E402
 from repro_torch.kernels.srht import fwht, fwht_factors, srht  # noqa: E402
 from repro_torch.kernels.tsolve import tsolve  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 DTYPES = ["float32", "float64", "complex64", "complex128"]
 

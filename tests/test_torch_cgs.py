@@ -24,6 +24,9 @@ from repro_torch.kernels import panel_deflate, project_out  # noqa: E402
 from repro_torch.kernels.common import (SMEM_BUDGET_BYTES,  # noqa: E402
                                         cdiv, dtype_code, product_tile,
                                         type_name)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 DTYPES = ["float32", "float64", "complex64", "complex128"]
 

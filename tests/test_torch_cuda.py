@@ -45,7 +45,9 @@ from repro_torch.kernels.srht.ref import fwht_ref, srht_ref
 from repro_torch.kernels.tsolve import tsolve
 from repro_torch.kernels.tsolve.kernel import LAUNCHES as TSOLVE_LAUNCHES
 from repro_torch.kernels.tsolve.ref import tsolve_ref
-from torch_ranks import failures, run_ranks
+from torch_ranks import failures, pin_threads, run_ranks
+
+pin_threads()
 
 # The train step is deterministic on the card (``launch.steps``): cuBLAS
 # reads its workspace setting when the process makes its first GEMM, so it
@@ -1401,6 +1403,39 @@ def test_cuda_moe_ffn_matches_the_cpu_and_repeats():
         routing.append((top_i.cpu(), keep.cpu()))
     assert torch.equal(routing[0][0], routing[1][0])
     assert torch.equal(routing[0][1], routing[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_matches_the_cpu_and_repeats():
+    """One SMOKE jamba Mamba layer in f32 on the card against the CPU on
+    the same weights and input: a prefill of 2 x 256 tokens (two chunks
+    of 128, the state carried), its output and both state leaves within
+    1e-5 of the largest entry (f32 sums in another order), then 4 decode
+    steps, each within 1e-5; two card prefills bit-equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import mamba as mamba_mod
+    dev = _device()
+    cfg = get_smoke_config("jamba_v01_52b").replace(dtype="float32")
+    cpu = mamba_mod.mamba_init(torch.Generator().manual_seed(0), cfg)
+    card = mamba_mod.Mamba(cfg, device=dev)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        a.copy_(b)
+    x = torch.randn((2, 260, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, wst = mamba_mod.mamba_prefill(cpu, cfg, x[:, :256])
+    got, st = mamba_mod.mamba_prefill(card, cfg, x[:, :256].to(dev))
+    again, st2 = mamba_mod.mamba_prefill(card, cfg, x[:, :256].to(dev))
+    assert torch.equal(got, again) and all(
+        torch.equal(a, b) for a, b in zip(st, st2))
+    assert _rel(got.cpu(), want) <= 1e-5
+    for a, b in zip(st, wst):
+        assert _rel(a.cpu(), b) <= 1e-5
+    for t in range(256, 260):
+        w, wst = mamba_mod.mamba_decode(cpu, cfg, x[:, t:t + 1], wst)
+        g, st = mamba_mod.mamba_decode(card, cfg, x[:, t:t + 1].to(dev), st)
+        assert _rel(g.cpu(), w) <= 1e-5
+    for a, b in zip(st, wst):
+        assert _rel(a.cpu(), b) <= 1e-5
 
 
 @pytest.mark.cuda

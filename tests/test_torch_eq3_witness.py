@@ -19,6 +19,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.benchmarks import bench_error  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -19,6 +19,9 @@ from repro_torch.kernels.flash import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.kernel import (LAUNCHES,  # noqa: E402
                                               flash_attention_kernel)
 from repro_torch.kernels.flash.ref import flash_ref  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 ATOL = 2e-5
 

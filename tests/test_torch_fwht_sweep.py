@@ -23,6 +23,9 @@ from repro_torch.kernels.panel_step import kernel as pk  # noqa: E402
 from repro_torch.kernels.srht import fwht_factors  # noqa: E402
 from repro_torch.kernels.srht import kernel as sk  # noqa: E402
 from repro_torch.kernels.srht.ref import fwht_ref, srht_ref  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 

@@ -37,6 +37,9 @@ from repro_torch.kernels.panel_step.kernel import (  # noqa: E402
 from repro_torch.kernels.tsolve.kernel import (  # noqa: E402
     DEPTH, SLAB_BYTES, STAGES, THREADS, tsolve_geometry, tsolve_launch)
 from repro_torch.kernels.tsolve.ref import BLOCK_ROWS  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 def _t(x):

@@ -12,6 +12,7 @@ Tolerance: 1e-4 of the largest entry of the reference's output (f32 sums
 in another order through two layers; the measured gaps are near 1e-6).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +34,9 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import norms as tnorms  # noqa: E402
 from repro_torch.models import rope as trope  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 RTOL = 1e-4
 ARCHS = ["granite_3_2b", "h2o_danube_1_8b"]
@@ -55,7 +59,7 @@ def pair(request):
     arch = request.param
     jc = jcfgs.get_smoke_config(arch).replace(dtype="float32")
     tc = tcfgs.get_smoke_config(arch).replace(dtype="float32")
-    jp = jmodels.init_params(jax.random.key(0), jc)
+    jp = jax.jit(lambda k: jmodels.init_params(k, jc))(jax.random.key(0))
     model = tmodels.params_from_jax(jax.tree.map(np.asarray, jp), tc,
                                     device="cpu")
     return arch, jc, jp, tc, model
@@ -79,8 +83,8 @@ def test_configs_equal_the_reference(arch):
 def test_config_aliases_and_unported_arch():
     assert tcfgs.get_config("granite-3-2b").n_layers == 40
     assert tcfgs.get_config("h2o-danube-1.8b").hd == 80
-    with pytest.raises(NotImplementedError, match="jamba.*ported.*granite"):
-        tcfgs.get_config("jamba-v0.1-52b")
+    with pytest.raises(NotImplementedError, match="xlstm.*ported.*granite"):
+        tcfgs.get_config("xlstm-125m")
     with pytest.raises(ValueError, match="unknown arch 'nope'"):
         tcfgs.get_smoke_config("nope")
 
@@ -93,17 +97,26 @@ def test_config_dtypes_are_torch():
 
 
 def test_unported_families_raise():
-    """MoE on every other layer (jamba's period) and a hybrid mixer still
-    raise; MoE on every layer is ported (tests/test_torch_moe.py)."""
-    cfg = tcfgs.get_smoke_config("granite_3_2b").replace(
-        moe=True, moe_layer_period=2, n_experts=4, n_experts_active=2,
-        moe_d_ff=32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmodels.init_params(0, cfg, device="cpu")
-    hybrid = tcfgs.get_smoke_config("granite_3_2b").replace(
-        family="hybrid", attn_layer_period=2)
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        tmodels.init_params(0, hybrid, device="cpu")
+    """An xLSTM mixer, the whisper encoder-decoder and M-RoPE still raise;
+    MoE on every other layer and a hybrid Mamba mixer now build
+    (tests/test_torch_mamba.py holds them to the reference)."""
+    base = tcfgs.get_smoke_config("granite_3_2b")
+    for cfg, what in ((base.replace(family="ssm", slstm_at=(1,)), "xLSTM"),
+                      (base.replace(encdec=True, n_encoder_layers=1),
+                       "whisper"),
+                      (base.replace(mrope=True), "M-RoPE")):
+        with pytest.raises(NotImplementedError, match=what):
+            tmodels.init_params(0, cfg, device="cpu")
+    moe2 = base.replace(moe=True, moe_layer_period=2, n_experts=4,
+                        n_experts_active=2, moe_d_ff=32)
+    hybrid = base.replace(family="hybrid", attn_layer_period=2)
+    for cfg in (moe2, hybrid):
+        model = tmodels.init_params(0, cfg, device="cpu")
+        lg, _ = tmodels.forward(model, cfg,
+                                torch.zeros((1, 4), dtype=torch.long))
+        assert lg.shape == (1, 4, cfg.padded_vocab)
+    assert [hasattr(b, "moe") for b in
+            tmodels.init_params(0, moe2, device="cpu").blocks] == [False, True]
 
 
 # ------------------------------------------------------------ components
@@ -174,7 +187,8 @@ def test_attention_matches(pair, S):
     tcos, tsin = trope.rope_cos_sin(torch.from_numpy(pos), tc.hd,
                                     tc.rope_theta)
     jblock = jax.tree.map(lambda a: a[0], jp["blocks"][0])
-    want = jattn.attention(jblock["mixer"], jc, jnp.asarray(x), jcos, jsin)
+    want = jax.jit(lambda p, x, c, s: jattn.attention(p, jc, x, c, s))(
+        jblock["mixer"], jnp.asarray(x), jcos, jsin)
     got = tattn.attention(model.blocks[0].mixer, tc, torch.from_numpy(x),
                           tcos, tsin)
     _close(got, want)
@@ -185,21 +199,32 @@ def test_attention_matches(pair, S):
 def test_forward_matches(pair):
     _, jc, jp, tc, model = pair
     toks = _tokens(20, jc.vocab_size, batch=2)
-    want, _ = jmodels.forward(jp, jc, jnp.asarray(toks))
+    want, _ = jax.jit(lambda p, t: jmodels.forward(p, jc, t))(
+        jp, jnp.asarray(toks))
     got, aux = tmodels.forward(model, tc, torch.from_numpy(toks))
     assert tuple(got.shape) == (2, 20, jc.padded_vocab)
     assert float(aux.load_balance_loss) == 0.0
     _close(got, want)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_serving_fns(jc):
+    """The reference's prefill and decode step for ``jc``, jitted once and
+    shared by the tests (one compile per prompt length, one decode)."""
+    return (jax.jit(lambda p, t: jmodels.prefill(p, jc, t, max_len=MAX_LEN)),
+            jax.jit(lambda p, t, pos, c: jmodels.decode_step(p, jc, t, pos,
+                                                              c)))
+
+
 def _jax_serve(jc, jp, toks, steps):
     """Reference prefill + greedy decode: the list of per-step logits."""
-    lg, caches = jmodels.prefill(jp, jc, jnp.asarray(toks), max_len=MAX_LEN)
+    jprefill, jdecode = _jax_serving_fns(jc)
+    lg, caches = jprefill(jp, jnp.asarray(toks))
     out = [np.asarray(lg)]
     nxt = jnp.argmax(lg[:, -1], axis=-1)[:, None].astype(jnp.int32)
     for i in range(steps):
         pos = jnp.full((toks.shape[0],), toks.shape[1] + i, jnp.int32)
-        lg, caches = jmodels.decode_step(jp, jc, nxt, pos, caches)
+        lg, caches = jdecode(jp, nxt, pos, caches)
         out.append(np.asarray(lg))
         nxt = jnp.argmax(lg[:, 0], axis=-1)[:, None].astype(jnp.int32)
     return out
@@ -247,9 +272,11 @@ def test_prefill_chunk_matches(pair):
     toks = _tokens(37, jc.vocab_size, seed=5)
     jcache = jmodels.init_caches(jc, 1, 64)
     tcache = tmodels.init_caches(tc, 1, 64, "cpu")
+    jchunk = jax.jit(lambda p, t, p0, c: jmodels.prefill_chunk(p, jc, t, p0,
+                                                                c))
     for p0 in range(0, 37, 8):
-        jl, jcache = jmodels.prefill_chunk(jp, jc, jnp.asarray(toks[:, p0:p0 + 8]),
-                                           p0, jcache)
+        jl, jcache = jchunk(jp, jnp.asarray(toks[:, p0:p0 + 8]),
+                            jnp.int32(p0), jcache)
         tl, tcache = tmodels.prefill_chunk(model, tc,
                                            torch.from_numpy(toks[:, p0:p0 + 8]),
                                            p0, tcache)

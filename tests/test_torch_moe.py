@@ -45,6 +45,9 @@ from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.serving import (GenerationRequest, ServeEngine,  # noqa: E402
                                  compress_params, compression_report)
 from repro_torch.serving.compress import LowRankWeight  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 TOL = 1e-4
 AUX_TOL = 1e-6

@@ -22,6 +22,9 @@ from repro_torch import models as tmodels  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch import serving as tserving  # noqa: E402
 from repro_torch.obs import trace as ttrace  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 def _workload(obs, trace, block_value):

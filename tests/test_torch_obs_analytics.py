@@ -40,7 +40,9 @@ from repro_torch.obs.export import exporter_names, get_exporter  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.obs.telemetry import PrometheusExporter  # noqa: E402
 from repro_torch.stream import ArraySource, rid_streamed  # noqa: E402
-from torch_ranks import failures, run_ranks  # noqa: E402
+from torch_ranks import failures, pin_threads, run_ranks  # noqa: E402
+
+pin_threads()
 
 PACKAGES = {"reference": (ref_obs, ref_trace),
             "port": (port_obs, port_trace)}

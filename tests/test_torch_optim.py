@@ -23,6 +23,9 @@ from repro_torch.optim import (CompressorConfig, adamw_init,  # noqa: E402
                                compress_grads, constant, ef_init,
                                global_norm, warmup_cosine)
 from repro_torch.optim import compress as tcompress  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 def _close(got, want, tol):

@@ -13,6 +13,9 @@ from repro_torch.core import (blocked_pivoted_qr, cgs2_pivoted_qr,  # noqa: E402
                               cholesky_qr2, householder_qr, interp_from_qr,
                               pivoted_qr, resolve_norm_recompute,
                               resolve_panel, solve_upper_triangular)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 def _t(x):

@@ -32,7 +32,9 @@ from repro_torch.core import (error_bound, panel_parallel_pivoted_qr,  # noqa: E
 from repro_torch.kernels.panel_gram import panel_gram  # noqa: E402
 from repro_torch.kernels.panel_step import (panel_apply,  # noqa: E402
                                             panel_coeff, panel_step)
-from torch_ranks import failures, run_ranks  # noqa: E402
+from torch_ranks import failures, pin_threads, run_ranks  # noqa: E402
+
+pin_threads()
 
 DTYPES = ["float32", "float64", "complex64", "complex128"]
 # Relative to each output's largest entry, as for panel_step in

@@ -17,6 +17,9 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.core import (error_bound, expected_sigma_kp1,  # noqa: E402
                               fwht, gaussian_omega_cols, rid, rsvd, sketch,
                               spectral_error, spectral_norm_dense)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 REPO = Path(__file__).resolve().parents[1]
 

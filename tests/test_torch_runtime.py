@@ -11,6 +11,9 @@ import repro.obs as ref_obs  # noqa: E402
 import repro.runtime as ref_runtime  # noqa: E402
 import repro_torch.obs as port_obs  # noqa: E402
 import repro_torch.runtime as port_runtime  # noqa: E402
+from torch_ranks import pin_threads
+
+pin_threads()
 
 PACKAGES = {"reference": (ref_runtime, ref_obs),
             "port": (port_runtime, port_obs)}

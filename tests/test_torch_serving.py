@@ -28,6 +28,9 @@ from repro_torch.serving import (GenerationRequest, ServeEngine,  # noqa: E402
                                  low_rank_targets)
 from repro_torch.serving.compress import (LowRankWeight,  # noqa: E402
                                           apply_low_rank)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 ARCH = "granite_3_2b"
 
@@ -419,7 +422,7 @@ def test_compress_params_factor_low_rank():
                                atol=1e-3)
 
 
-def test_compress_takes_only_2d_leaves():
+def test_compress_factors_stacked_leaves_per_slice_all_or_none():
     """A stacked leaf (the port's (E, m, n) expert stacks) is a target and
     is factored one slice at a time, all slices or none, as the reference
     factors its stacked leaves: B (E, m, k), P (E, k, n); one full-rank

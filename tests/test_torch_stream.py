@@ -18,6 +18,9 @@ from repro_torch.stream import (ArraySource, SpectrumSource,  # noqa: E402
                                 rid_streamed)
 from repro_torch.benchmarks.bench_chaos import (  # noqa: E402
     fields_equal, killed_twice_then_resumed)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 @pytest.fixture(autouse=True, scope="module")

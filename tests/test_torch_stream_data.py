@@ -25,6 +25,9 @@ from repro_torch.runtime import (ChunkReadFailed, FaultPlan,  # noqa: E402
 from repro_torch.runtime.faults import _uniform  # noqa: E402
 from repro_torch.stream import (ArraySource, FileSource,  # noqa: E402
                                 SpectrumSource, chunk_bounds, num_chunks)
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -33,7 +33,9 @@ import torch
 jax = pytest.importorskip("jax")
 
 from repro_torch.stream import ArraySource, rid_streamed  # noqa: E402
-from torch_ranks import failures, run_ranks  # noqa: E402
+from torch_ranks import failures, pin_threads, run_ranks  # noqa: E402
+
+pin_threads()
 
 RANK_TIMEOUT = 120          # seconds per rank process
 M, N, K, PANEL, CHUNK = 1000, 400, 21, 7, 384     # 3 chunks, the last short

@@ -38,6 +38,9 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.optim import CompressorConfig, adamw_init  # noqa: E402
 from repro_torch.runtime import HostFailure  # noqa: E402
+from torch_ranks import pin_threads  # noqa: E402
+
+pin_threads()
 
 ATTN_TOL = 5e-5
 TOL = 1e-4
@@ -112,8 +115,8 @@ def test_attention_blockwise_values_and_grads_match_the_reference(
                                          block=64)
         return jnp.sum(out * w), out
 
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                           has_aux=True)(q, k, v)
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     out = tattn._attention_blockwise(tq, tk, tv, causal=True, window=window)
     (out * torch.from_numpy(w)).sum().backward()
@@ -189,9 +192,9 @@ def test_loss_fn_metrics_and_grads_match_the_reference(threshold,
         monkeypatch.setattr(tattn, "BLOCKWISE_THRESHOLD", threshold)
     jc, jp, tc, model = _pair()
     batch = _batch(jc, 2, 24)
-    (jtotal, jmetrics), jgrads = jax.value_and_grad(
-        jtransformer.loss_fn, has_aux=True)(
-        jp, jc, {k: jnp.asarray(v) for k, v in batch.items()})
+    (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jtransformer.loss_fn(p, jc, b), has_aux=True))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
     total, metrics = tmodels.loss_fn(
         model, tc, {k: torch.from_numpy(v) for k, v in batch.items()})
     names, params = zip(*model.named_parameters())

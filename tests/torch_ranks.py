@@ -1,13 +1,43 @@
-"""Rank processes for the port's ``torch.distributed`` tests: one Python
-subprocess per rank, each waited on with its own timeout, so that no test
-process ever joins a process group and no hung collective can hang the
-suite."""
+"""Helpers of the port's tests.
+
+Rank processes for the ``torch.distributed`` tests: one Python subprocess
+per rank, each waited on with its own timeout, so that no test process
+ever joins a process group and no hung collective can hang the suite.
+
+``pin_threads``: the test process's torch thread pools, capped once."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PINNED: list = []
+
+
+def pin_threads(n: int = 1) -> None:
+    """Cap this process's torch intra-op and inter-op thread pools at
+    ``n``.  Every ``tests/test_torch_*.py`` calls it when imported: the
+    suite runs in several worker processes on one host, and torch's
+    default pools, each the size of the host, oversubscribe its cores many
+    times over.  The first call sets the pools; a later call with the same
+    ``n`` does nothing (the inter-op pool can be set once a process), one
+    with another ``n`` raises."""
+    if _PINNED:
+        if _PINNED[0] != n:
+            raise ValueError(f"torch threads already pinned to {_PINNED[0]}; "
+                             f"got n={n}")
+        return
+    torch.set_num_threads(n)
+    try:
+        torch.set_num_interop_threads(n)
+    except RuntimeError:
+        # The inter-op pool already started (work ran in this process
+        # before the first test module was imported): it keeps its size.
+        pass
+    _PINNED.append(n)
 
 
 def run_ranks(program: str, world: int, *args: str, timeout: int,
