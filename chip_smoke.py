@@ -35,7 +35,8 @@ in order, printing one JSON line per phase:
                  bit); flash at granite's prefill (32 heads, hd 64,
                  S=T=4000, causal), danube's (32 heads, hd 80,
                  S=T=6144, window 4096), qwen2-moe's (16 heads, hd 128,
-                 S=T=4000, causal) and jamba's (32 heads, hd 128,
+                 S=T=4000, causal), jamba's (32 heads, hd 128,
+                 S=T=4096, causal) and qwen2-vl's (12 heads, hd 128,
                  S=T=4096, causal), a non-causal, a ragged S != T and
                  an hd 256 case, q f32 with k/v bf16 and all f32, each
                  also with its lse (o bit-equal, lse against flash_ref's);
@@ -157,6 +158,37 @@ in order, printing one JSON line per phase:
                  scan's 128-token chunk) refused with a ValueError, by
                  ``prefill`` and by the engine, which serves the next
                  request;
+  xlstm       -- (a) xlstm-125m at full width and depth (12 layers:
+                 mLSTM, sLSTM at 1 and 7; random weights from a seed)
+                 through the serve phase's engine: 5 prompts of 14-60
+                 tokens and one of 4096, no kernel launched, tokens per
+                 second, the long prefill, the mean decode step, peak
+                 memory, and one prefill and one batch-4 decode step under
+                 ``torch.profiler`` (the ranges xlstm.mlstm and xlstm.slstm
+                 with their launches, and the rest); (b) one mLSTM and one
+                 sLSTM layer on 1024 tokens in f32, card against CPU within
+                 1e-4, two card calls bit-equal; (c) a 64-token prefill and
+                 64 decode steps against ``forward`` over the 128 (f32)
+                 within 1e-4; (d) a 100-token prompt (over the mLSTM's
+                 64-token chunk, not a multiple of it) refused with a
+                 ValueError, by ``prefill`` and by the engine, which serves
+                 the next request;
+  encdec      -- whisper-tiny at full width and depth (4 encoder and 4
+                 decoder layers, 1500 frames from a seed): (a) a prefill of
+                 4 x 8 tokens with the frames and 32 greedy decode steps,
+                 each timed; (b) in f32 the same prefill and 8 decode steps,
+                 card against CPU and decode against ``forward``, within
+                 1e-4; (c) the engine's refusal of an encoder-decoder;
+  vlm         -- (a) qwen2-vl-2b at full width and depth (28 layers,
+                 1.544e9 parameters) through the serve phase's engine: 5
+                 prompts of at most 128 tokens and one of 4096, flash
+                 launched once a layer (28) and nothing else, tokens per
+                 second, peak memory, the long prefill under
+                 ``torch.profiler`` (flash and the rest); (b) at 2 layers in
+                 f32, ``forward`` with patch embeddings on a 4 x 8 image
+                 grid before the text and distinct (t, h, w) ids, card
+                 against CPU within 1e-4, and the text M-RoPE tables equal
+                 to plain RoPE's on the card;
   analysis    -- ``repro_torch.analysis.run_all(device="cuda")`` on a
                  one-rank NCCL group (what ``python -m repro_torch.analysis``
                  runs): 0 new findings against the empty baseline, every
@@ -179,8 +211,8 @@ in order, printing one JSON line per phase:
                  bench_dmma's least of two rounds, and under
                  ``torch.profiler`` their kernels' device time and device
                  span a call, with the SM clock)
-                 (flash at granite's, qwen2-moe's and jamba's serve
-                 shapes, beside
+                 (flash at granite's, qwen2-moe's, jamba's and qwen2-vl's
+                 serve shapes, beside
                  ``F.scaled_dot_product_attention``, its bound two TF32
                  passes on the tensor cores; big_copy at the
                  analysis phase's f32 shape, beside ``Tensor.clone``);
@@ -280,17 +312,18 @@ PEAK_BF16_FLOPS = 989e12
 # softmax).
 FLASH_TOL = 1e-5
 # (case, B*H, S, T, hd, causal, window): the prefill shapes of granite-3-2b
-# and h2o-danube-1.8b, a non-causal and a ragged case, and qwen2-moe-a2.7b's
-# and jamba-v0.1-52b's prefills (the last two; their inputs come from
-# generators of their own, so the shared generator's draws for the main path
-# are the earlier cases').
+# and h2o-danube-1.8b, a non-causal and a ragged case, and qwen2-moe-a2.7b's,
+# jamba-v0.1-52b's and qwen2-vl-2b's prefills (the last three; their inputs
+# come from generators of their own, so the shared generator's draws for the
+# main path are the earlier cases').
 FLASH_CASES = (("granite prefill", 32, 4000, 4000, 64, True, None),
                ("danube prefill", 32, 6144, 6144, 80, True, 4096),
                ("non-causal", 32, 1024, 1024, 64, False, None),
                ("ragged", 32, 1500, 3000, 80, True, None),
                ("hd 256", 8, 1024, 1024, 256, True, None),
                ("qwen2-moe prefill", 16, 4000, 4000, 128, True, None),
-               ("jamba prefill", 32, 4096, 4096, 128, True, None))
+               ("jamba prefill", 32, 4096, 4096, 128, True, None),
+               ("qwen2-vl prefill", 12, 4096, 4096, 128, True, None))
 # The serve phase: granite-3-2b's engine, its long prompts and the chunked
 # cross-check.  Tolerance of the one-shot (flash) against the chunked
 # (dense) prefill's last-token logits, both in bf16 compute through 40
@@ -326,6 +359,33 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 4096, 2
 # not a multiple of it, is refused as the reference refuses it.
 HYBRID_LAYERS, HYBRID_LONG, HYBRID_SHORTS = 8, 4096, 5
 HYBRID_PREFIX, HYBRID_STEPS, HYBRID_OFF, HYBRID_TOL = 120, 8, 4000, 1e-4
+# The xlstm phase: xlstm-125m at full width and depth (12 layers, sLSTM at
+# 1 and 7, mLSTM elsewhere; 1.968e8 parameters in its tensors, 0.79 GB in
+# f32) through the serve phase's engine: XLSTM_SHORTS prompts of 14-60
+# tokens and one of XLSTM_LONG (a multiple of the mLSTM's 64-token chunk).
+# One mLSTM and one sLSTM layer on XLSTM_LAYER_TOKENS tokens in f32, card
+# against CPU; a prefill of XLSTM_PREFIX tokens and XLSTM_STEPS decode
+# steps against forward over all of them in f32; both within XLSTM_TOL of
+# the largest entry (f32 sums in another order over d_inner 1536).  An
+# XLSTM_OFF-token prompt, over 64 and not a multiple of it, is refused as
+# the reference refuses it.
+XLSTM_SHORTS, XLSTM_LONG, XLSTM_LAYER_TOKENS = 5, 4096, 1024
+XLSTM_PREFIX, XLSTM_STEPS, XLSTM_OFF, XLSTM_TOL = 64, 64, 100, 1e-4
+# The encdec phase: whisper-tiny at full width and depth (4 encoder and 4
+# decoder layers, 1500 encoder frames drawn from a seed): a prefill of
+# ENCDEC_BATCH x ENCDEC_PROMPT tokens with the frames, then ENCDEC_STEPS
+# greedy decode steps; in f32 the same prefill and ENCDEC_CHECK decode
+# steps, card against CPU and decode against forward, within ENCDEC_TOL.
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 8, 32
+ENCDEC_CHECK, ENCDEC_TOL = 8, 1e-4
+# The vlm phase: qwen2-vl-2b at full width and depth (28 layers, 1.544e9
+# parameters, 6.2 GB in f32) through the serve phase's engine: VLM_SHORTS
+# prompts of at most 128 tokens and one of VLM_LONG (flash once a layer);
+# at VLM_CHECK_LAYERS layers in f32, forward with patch embeddings on an
+# image grid of VLM_GRID (h, w) patches before the text and distinct
+# (t, h, w) ids, card against CPU within VLM_TOL.
+VLM_SHORTS, VLM_LONG, VLM_CHECK_LAYERS, VLM_GRID, VLM_TOL = (
+    5, 4096, 2, (4, 8), 1e-4)
 # The train phase: granite-3-2b at full width and depth, batch 2 x 4096
 # (train_4k's length), 5 steps; (c) at 2 layers.  Tolerance of the
 # Function's gradients against autograd through flash_ref, relative to the
@@ -435,6 +495,11 @@ def main() -> int:
         from repro_torch.models import attention as attn_mod
         from repro_torch.models import mamba as mamba_mod
         from repro_torch.models import moe as moe_mod
+        from repro_torch.models import xlstm as xlstm_mod
+        from repro_torch.models import params_from_jax, params_to_numpy
+        from repro_torch.models.config import MLSTM, SLSTM
+        from repro_torch.models.rope import (mrope_cos_sin, text_positions,
+                                             text_mrope_positions)
         from repro_torch.models import transformer as tr_mod
         from repro_torch.models.norms import rmsnorm
         from repro_torch.models.rope import apply_rope, rope_cos_sin
@@ -1113,9 +1178,12 @@ def main() -> int:
     gen_moe_case.manual_seed(SEED + 26)
     gen_jamba_case = torch.Generator(device=dev)
     gen_jamba_case.manual_seed(SEED + 30)
+    gen_vlm_case = torch.Generator(device=dev)
+    gen_vlm_case.manual_seed(SEED + 45)
     for case, bh, s, t, hd, causal, window in FLASH_CASES:
         g_case = {"qwen2-moe prefill": gen_moe_case,
-                  "jamba prefill": gen_jamba_case}.get(case, gen)
+                  "jamba prefill": gen_jamba_case,
+                  "qwen2-vl prefill": gen_vlm_case}.get(case, gen)
         for qdt, kvdt in ((torch.float32, torch.bfloat16),
                           (torch.float32, torch.float32)):
             q = torch.randn((bh, s, hd), generator=g_case,
@@ -2583,7 +2651,9 @@ def main() -> int:
         ``ranges`` the device time and count of the kernels that start
         inside its spans on the device timeline (one stream, so a kernel
         belongs to the range whose span holds it) and its share of busy
-        time; the rest is busy time outside them all."""
+        time; the rest is busy time outside them all.  It reads the raw
+        Kineto events: parsing them into ``prof.events()`` takes tens of
+        seconds at the 10^5 launches of an sLSTM prefill."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -2592,27 +2662,27 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        evs = prof.events()
-        kern = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
-                for e in evs if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation]
+        evs = prof.profiler.kineto_results.events()
+        on_dev = [e for e in evs if e.device_type() == DeviceType.CUDA]
+        kern = [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+                for e in on_dev if not e.is_user_annotation()]
         busy = sum(ms for _, _, ms in kern)
-        check(busy > 0, "hybrid trace: no device time recorded")
+        check(busy > 0, "profiled trace: no device time recorded")
         out = {"traced_wall_s": wall, "device_busy_ms": busy,
                "device_idle_share": 1 - busy / (1e3 * wall),
                "flash_ms": sum(ms for name, _, ms in kern
                                if "flash_fwd_kernel" in name)}
         inside = out["flash_ms"]
         for rname in ranges:
-            spans = [(e.time_range.start, e.time_range.end) for e in evs
-                     if e.name == rname and e.device_type == DeviceType.CUDA
-                     and e.is_user_annotation]
+            spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in on_dev
+                     if e.is_user_annotation() and e.name() == rname]
             ks = [ms for _, t, ms in kern
                   if any(lo <= t < hi for lo, hi in spans)]
             inside += sum(ks)
             out[rname] = {"ms": sum(ks), "launches": len(ks),
-                          "calls": sum(1 for e in evs if e.name == rname
-                                       and e.device_type == DeviceType.CPU),
+                          "calls": sum(1 for e in evs if e.name() == rname
+                                       and e.device_type() == DeviceType.CPU),
                           "device_spans": len(spans),
                           "share_of_busy": sum(ks) / busy}
         out["rest_ms"] = busy - inside
@@ -2813,6 +2883,414 @@ def main() -> int:
         "ValueError") and reqs[1].status == "done",
           f"hybrid (d): engine {[(r.status, r.error) for r in reqs]}")
     del eng, reqs, model
+    torch.cuda.empty_cache()
+
+    # -------- xlstm: xlstm-125m at full width and depth (own generators).
+    # Phase hybrid freed its model above.
+    gen_xl = torch.Generator(device=dev)
+    gen_xl.manual_seed(SEED + 42)
+    rng_xl = np.random.default_rng(SEED + 42)
+    xl_ranges = ("xlstm.mlstm", "xlstm.slstm")
+    t_phase = time.perf_counter()
+
+    def serve_through_engine(cfg, model, prompts):
+        """The serve phase's engine over ``prompts`` (SERVE_NEW new tokens
+        each), traced: (wall s, launches, peak bytes, the longest prompt's
+        prefill spans, the decode spans, [(status, tokens)], tokens)."""
+        eng = ServeEngine(cfg, model, max_batch=SERVE_BATCH,
+                          max_len=SERVE_LEN)
+        reqs = [GenerationRequest(request_id=i, prompt=p,
+                                  max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        tracer = Tracer()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with tracing(tracer):
+            eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        longest = max(len(p) for p in prompts)
+        return {"wall_s": wall, "launches": read_counts(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "long_prefill": [sp.dur for sp in tracer.spans
+                                 if sp.name == "serve.prefill"
+                                 and sp.attrs.get("prompt_tokens")
+                                 == longest],
+                "decode_s": [sp.dur for sp in tracer.spans
+                             if sp.name == "serve.decode"],
+                "statuses": [(r.status, len(r.output)) for r in reqs],
+                "tokens": sum(len(r.output) for r in reqs)}
+
+    # (a) The engine: XLSTM_SHORTS short prompts and one of XLSTM_LONG; then
+    # the long prefill and a batch-4 decode step profiled.
+    cfg = get_config("xlstm-125m")
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(gen_xl, cfg, device=dev)
+    prompts = [rng_xl.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng_xl.integers(14, 61, XLSTM_SHORTS)]
+    prompts.append(rng_xl.integers(0, cfg.vocab_size,
+                                   XLSTM_LONG).astype(np.int32))
+    served = serve_through_engine(cfg, model, prompts)
+    xlstm_launches = served["launches"]
+    toks = torch.as_tensor(prompts[-1], dtype=torch.int64, device=dev)[None]
+    lg, _ = prefill(model, cfg, toks, max_len=SERVE_LEN)
+    nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    finite = bool(torch.isfinite(lg).all())
+    del lg
+    prefill_trace = profiled_ranges(
+        lambda: prefill(model, cfg, toks, max_len=SERVE_LEN), xl_ranges)
+    batch = init_caches(cfg, SERVE_BATCH, SERVE_LEN, dev)
+    step_toks = nxt.expand(SERVE_BATCH, 1).contiguous()
+    step_pos = torch.full((SERVE_BATCH,), toks.shape[1], device=dev)
+    decode_step(model, cfg, step_toks, step_pos, batch)
+    decode_trace = profiled_ranges(
+        lambda: decode_step(model, cfg, step_toks, step_pos, batch),
+        xl_ranges)
+    del batch, toks, step_toks, step_pos
+    torch.cuda.empty_cache()
+    decode_s = served["decode_s"]
+    emit({"phase": "xlstm", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "reduced": "none (full width and depth)",
+          "kinds": kinds, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "mlstm_head_dim": xlstm_mod._mlstm_dims(cfg)[2],
+          "params": cfg.param_count(),
+          "param_numel": sum(p.numel() for p in model.parameters()),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "memory_allocated_at_start": mem_start,
+          "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, "wall_s": served["wall_s"],
+          "generated_tokens": served["tokens"],
+          "tokens_per_s": served["tokens"] / served["wall_s"],
+          "prefill_long_s": (served["long_prefill"][0]
+                             if served["long_prefill"] else None),
+          "decode_steps": len(decode_s),
+          "decode_step_mean_s": (sum(decode_s) / len(decode_s)
+                                 if decode_s else None),
+          "max_memory_allocated": served["peak"],
+          "launches": xlstm_launches, "prefill_trace": prefill_trace,
+          "decode_step_batch": SERVE_BATCH,
+          "decode_step_trace": decode_trace, "finite": finite})
+    check(all(st == "done" and n == SERVE_NEW for st, n in served["statuses"]),
+          f"xlstm (a): {served['statuses']}")
+    check(all(v == 0 for v in xlstm_launches.values()),
+          f"xlstm (a): kernels launched {xlstm_launches}")
+    check(len(served["long_prefill"]) == 1,
+          "xlstm (a): no prefill span of the long prompt")
+    check(finite, "xlstm (a): logits not finite")
+    for key, tr in (("prefill", prefill_trace), ("decode", decode_trace)):
+        spans = {r: tr[r]["device_spans"] for r in xl_ranges}
+        check(spans == {"xlstm.mlstm": kinds.count(MLSTM),
+                        "xlstm.slstm": kinds.count(SLSTM)},
+              f"xlstm (a): {key} ranges on the device {spans}")
+        check(tr["rest_ms"] >= 0, f"xlstm (a): {key} ranges exceed busy")
+
+    # (b) One mLSTM and one sLSTM layer at full width on XLSTM_LAYER_TOKENS
+    # tokens in f32, on the card (twice) and on the CPU with the same
+    # weights and input.
+    lcfg = cfg.replace(dtype="float32")
+    x = torch.randn((1, XLSTM_LAYER_TOKENS, cfg.d_model), generator=gen_xl,
+                    device=dev)
+    layers_b = []
+    for i in (kinds.index(MLSTM), kinds.index(SLSTM)):
+        layer = model.blocks[i].mixer
+        fwd = (xlstm_mod.mlstm_forward if kinds[i] == MLSTM
+               else xlstm_mod.slstm_forward)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y1 = fwd(layer, lcfg, x)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        y2 = fwd(layer, lcfg, x)
+        cpu_layer = type(layer)(lcfg)
+        for a, b in zip(cpu_layer.parameters(), layer.parameters()):
+            a.copy_(b.cpu())
+        t0 = time.perf_counter()
+        y_cpu = fwd(cpu_layer, lcfg, x.cpu())
+        cpu_s = time.perf_counter() - t0
+        layers_b.append({"layer": i, "kind": kinds[i],
+                         "y_rel_err": rel_err(y1.cpu(), y_cpu),
+                         "card_repeat_bit_equal": bool(torch.equal(y1, y2)),
+                         "card_first_s": card_s, "cpu_s": cpu_s})
+        del layer, cpu_layer, y1, y2, y_cpu
+    emit({"phase": "xlstm", "part": "b", "arch": cfg.name,
+          "tokens": XLSTM_LAYER_TOKENS, "chunk": xlstm_mod.MLSTM_CHUNK,
+          "compute_dtype": "float32", "tol": XLSTM_TOL, "layers": layers_b})
+    for row in layers_b:
+        check(row["y_rel_err"] <= XLSTM_TOL, f"xlstm (b): {row['kind']} "
+              f"y {row['y_rel_err']} beyond {XLSTM_TOL}")
+        check(row["card_repeat_bit_equal"],
+              f"xlstm (b): {row['kind']}: two card calls differ")
+    del x
+    torch.cuda.empty_cache()
+
+    # (c) Prefill of XLSTM_PREFIX tokens (one chunk) and XLSTM_STEPS
+    # teacher-forced decode steps against forward over all of them (two
+    # chunks), in f32.
+    n_all = XLSTM_PREFIX + XLSTM_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, n_all), generator=gen_xl,
+                         device=dev)
+    with torch.no_grad():
+        full, _ = forward(model, lcfg, toks)
+    lg, caches = prefill(model, lcfg, toks[:, :XLSTM_PREFIX], max_len=n_all)
+    step_err = [rel_err(lg[:, 0], full[:, XLSTM_PREFIX - 1])]
+    for i in range(XLSTM_STEPS):
+        p = XLSTM_PREFIX + i
+        lg, caches = decode_step(model, lcfg, toks[:, p:p + 1], p, caches)
+        step_err.append(rel_err(lg[:, 0], full[:, p]))
+    emit({"phase": "xlstm", "part": "c", "arch": cfg.name,
+          "prefix_tokens": XLSTM_PREFIX, "decode_steps": XLSTM_STEPS,
+          "compute_dtype": "float32", "max_rel_err": max(step_err),
+          "rel_err_last": step_err[-1], "tol": XLSTM_TOL,
+          "finite": bool(torch.isfinite(full).all())})
+    check(max(step_err) <= XLSTM_TOL, f"xlstm (c): prefill + decode vs "
+          f"forward {max(step_err)} beyond {XLSTM_TOL}")
+    del full, lg, caches, toks
+    torch.cuda.empty_cache()
+
+    # (d) A prompt over 64 tokens and not a multiple of 64: prefill raises
+    # the ValueError that names the rule; the engine fails that request
+    # alone and serves the next.
+    bad = rng_xl.integers(0, cfg.vocab_size, XLSTM_OFF).astype(np.int32)
+    try:
+        prefill(model, cfg, torch.as_tensor(bad, device=dev)[None],
+                max_len=SERVE_LEN)
+        refused = "nothing raised"
+    except Exception as e:              # noqa: BLE001 — reported, gated
+        refused = f"{type(e).__name__}: {e}"
+    eng = ServeEngine(cfg, model, max_batch=1, max_len=SERVE_LEN)
+    reqs = [GenerationRequest(request_id=0, prompt=bad, max_new_tokens=2),
+            GenerationRequest(request_id=1, prompt=prompts[0],
+                              max_new_tokens=2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    emit({"phase": "xlstm", "part": "d", "prompt_tokens": XLSTM_OFF,
+          "prefill_raised": refused,
+          "engine": [{"status": r.status, "error": r.error,
+                      "new_tokens": len(r.output)} for r in reqs],
+          "phase_s": time.perf_counter() - t_phase})
+    check(refused.startswith("ValueError") and "multiple" in refused,
+          f"xlstm (d): prefill of {XLSTM_OFF} tokens gave {refused}")
+    check(reqs[0].status == "failed" and reqs[0].error.startswith(
+        "ValueError") and reqs[1].status == "done",
+          f"xlstm (d): engine {[(r.status, r.error) for r in reqs]}")
+    del eng, reqs, model
+    torch.cuda.empty_cache()
+
+    # -------- encdec: whisper-tiny at full width and depth (own generator).
+    gen_ed = torch.Generator(device=dev)
+    gen_ed.manual_seed(SEED + 43)
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-tiny")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(gen_ed, cfg, device=dev)
+
+    # (a) A prefill of ENCDEC_BATCH x ENCDEC_PROMPT tokens with 1500
+    # frames, then ENCDEC_STEPS greedy decode steps, each timed.
+    frames = torch.randn((ENCDEC_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=gen_ed, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                         generator=gen_ed, device=dev)
+    max_len = ENCDEC_PROMPT + ENCDEC_STEPS
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, caches = prefill(model, cfg, toks, max_len=max_len, frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_s, finite = [], bool(torch.isfinite(lg).all())
+    for i in range(ENCDEC_STEPS):
+        nxt = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        t0 = time.perf_counter()
+        lg, caches = decode_step(model, cfg, nxt, ENCDEC_PROMPT + i, caches)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(lg).all())
+    encdec_launches = read_counts()
+    emit({"phase": "encdec", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_encoder_layers": cfg.n_encoder_layers,
+          "reduced": "none (full width and depth)",
+          "frames": cfg.n_frontend_tokens, "d_model": cfg.d_model,
+          "params": cfg.param_count(),
+          "param_numel": sum(p.numel() for p in model.parameters()),
+          "compute_dtype": cfg.dtype, "batch": ENCDEC_BATCH,
+          "prompt_tokens": ENCDEC_PROMPT, "prefill_s": prefill_s,
+          "decode_steps": ENCDEC_STEPS, "decode_step_s": step_s,
+          "decode_step_mean_s": sum(step_s) / len(step_s),
+          "decode_step_mean_s_after_first": (sum(step_s[1:])
+                                             / (len(step_s) - 1)),
+          "tokens_per_s": ENCDEC_BATCH * ENCDEC_STEPS / sum(step_s),
+          "cross_cache_shape": list(caches["cross"][0][0].shape),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": encdec_launches, "finite": finite})
+    check(finite, "encdec (a): logits not finite")
+    check(all(v == 0 for v in encdec_launches.values()),
+          f"encdec (a): kernels launched {encdec_launches}")
+    del lg, caches, toks
+
+    # (b) The same prefill and ENCDEC_CHECK teacher-forced decode steps in
+    # f32, card against CPU (the same weights and frames), and decode
+    # against forward over the same tokens on the card.
+    ccfg = cfg.replace(dtype="float32")
+    n_all = ENCDEC_PROMPT + ENCDEC_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (ENCDEC_BATCH, n_all),
+                         generator=gen_ed, device=dev)
+    cpu_model = params_from_jax(params_to_numpy(model), ccfg, device="cpu")
+
+    def encdec_steps(m, t, f):
+        lg, caches = prefill(m, ccfg, t[:, :ENCDEC_PROMPT], max_len=n_all,
+                             frames=f)
+        out = [lg[:, 0]]
+        for i in range(ENCDEC_CHECK):
+            p = ENCDEC_PROMPT + i
+            lg, caches = decode_step(m, ccfg, t[:, p:p + 1], p, caches)
+            out.append(lg[:, 0])
+        return torch.stack(out, 1)
+
+    card = encdec_steps(model, toks, frames)
+    t0 = time.perf_counter()
+    cpu = encdec_steps(cpu_model, toks.cpu(), frames.cpu())
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        full, _ = forward(model, ccfg, toks, frames=frames)
+    cpu_err = rel_err(card.cpu(), cpu)
+    fwd_err = max(rel_err(card[:, i], full[:, ENCDEC_PROMPT - 1 + i])
+                  for i in range(ENCDEC_CHECK + 1))
+    emit({"phase": "encdec", "part": "b", "compute_dtype": "float32",
+          "prefix_tokens": ENCDEC_PROMPT, "decode_steps": ENCDEC_CHECK,
+          "card_vs_cpu_rel_err": cpu_err, "decode_vs_forward_rel_err":
+          fwd_err, "tol": ENCDEC_TOL, "cpu_s": cpu_s})
+    check(cpu_err <= ENCDEC_TOL, f"encdec (b): card vs CPU {cpu_err} beyond "
+          f"{ENCDEC_TOL}")
+    check(fwd_err <= ENCDEC_TOL, f"encdec (b): decode vs forward {fwd_err} "
+          f"beyond {ENCDEC_TOL}")
+    del cpu_model, card, cpu, full, toks
+
+    # (c) The engine refuses an encoder-decoder when it is built.
+    try:
+        ServeEngine(cfg, model, max_batch=SERVE_BATCH, max_len=SERVE_LEN)
+        refused = "nothing raised"
+    except Exception as e:              # noqa: BLE001 — reported, gated
+        refused = f"{type(e).__name__}: {e}"
+    emit({"phase": "encdec", "part": "c", "engine_raised": refused,
+          "phase_s": time.perf_counter() - t_phase})
+    check(refused.startswith("ValueError") and "encoder-decoder" in refused,
+          f"encdec (c): the engine gave {refused}")
+    del model, frames
+    torch.cuda.empty_cache()
+
+    # -------- vlm: qwen2-vl-2b at full width and depth (own generators).
+    gen_vl = torch.Generator(device=dev)
+    gen_vl.manual_seed(SEED + 44)
+    rng_vl = np.random.default_rng(SEED + 44)
+    t_phase = time.perf_counter()
+
+    # (a) The engine: VLM_SHORTS prompts of at most 128 tokens and one of
+    # VLM_LONG (flash once a layer); the long prefill profiled.
+    cfg = get_config("qwen2-vl-2b")
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(gen_vl, cfg, device=dev)
+    prompts = [rng_vl.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng_vl.integers(8, 129, VLM_SHORTS)]
+    prompts.append(rng_vl.integers(0, cfg.vocab_size,
+                                   VLM_LONG).astype(np.int32))
+    served = serve_through_engine(cfg, model, prompts)
+    vlm_launches = served["launches"]
+    n_long = sum(len(p) > attn_mod.BLOCKWISE_THRESHOLD for p in prompts)
+    toks = torch.as_tensor(prompts[-1], dtype=torch.int64, device=dev)[None]
+    prefill(model, cfg, toks, max_len=SERVE_LEN)
+    prefill_trace = profiled_ranges(
+        lambda: prefill(model, cfg, toks, max_len=SERVE_LEN), ())
+    del toks
+    decode_s = served["decode_s"]
+    emit({"phase": "vlm", "part": "a", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "reduced": "none (full width and depth)",
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "hd": cfg.hd,
+          "mrope_sections": list(cfg.mrope_sections),
+          "params": cfg.param_count(),
+          "param_numel": sum(p.numel() for p in model.parameters()),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+          "memory_allocated_at_start": mem_start,
+          "max_batch": SERVE_BATCH, "max_len": SERVE_LEN,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW, "wall_s": served["wall_s"],
+          "generated_tokens": served["tokens"],
+          "tokens_per_s": served["tokens"] / served["wall_s"],
+          "prefill_long_s": (served["long_prefill"][0]
+                             if served["long_prefill"] else None),
+          "decode_steps": len(decode_s),
+          "decode_step_mean_s": (sum(decode_s) / len(decode_s)
+                                 if decode_s else None),
+          "max_memory_allocated": served["peak"],
+          "launches": vlm_launches, "prefill_trace": prefill_trace})
+    check(all(st == "done" and n == SERVE_NEW for st, n in served["statuses"]),
+          f"vlm (a): {served['statuses']}")
+    check(vlm_launches["flash"] == n_long * cfg.n_layers == cfg.n_layers,
+          f"vlm (a): flash launched {vlm_launches['flash']} times, expected "
+          f"{n_long} x {cfg.n_layers}")
+    check(all(v == 0 for name, v in vlm_launches.items() if name != "flash"),
+          f"vlm (a): other kernels launched {vlm_launches}")
+    check(len(served["long_prefill"]) == 1,
+          "vlm (a): no prefill span of the long prompt")
+    check(prefill_trace["flash_ms"] > 0 and prefill_trace["rest_ms"] >= 0,
+          f"vlm (a): prefill trace {prefill_trace['flash_ms']}, "
+          f"{prefill_trace['rest_ms']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) At VLM_CHECK_LAYERS layers in f32: forward with patch embeddings
+    # on an image grid before the text and distinct (t, h, w) ids, card
+    # against CPU; the text M-RoPE tables against plain RoPE's, on the card.
+    scfg = cfg.replace(n_layers=VLM_CHECK_LAYERS, dtype="float32")
+    small = init_params(gen_vl, scfg, device=dev)
+    gh, gw = VLM_GRID
+    n_img = gh * gw
+    n_txt = n_img
+    hh, ww = np.divmod(np.arange(n_img), gw)
+    txt = max(gh, gw) + np.arange(n_txt)
+    pos = torch.as_tensor(np.stack([
+        np.concatenate([np.zeros(n_img, int), txt]),
+        np.concatenate([hh, txt]), np.concatenate([ww, txt])])[:, None],
+        dtype=torch.int64, device=dev)                     # (3, 1, S)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_img + n_txt),
+                         generator=gen_vl, device=dev)
+    patches = torch.zeros((1, n_img + n_txt, cfg.d_model), device=dev)
+    patches[:, :n_img] = torch.randn((1, n_img, cfg.d_model),
+                                     generator=gen_vl, device=dev)
+    with torch.no_grad():
+        card, _ = forward(small, scfg, toks, positions=pos, patches=patches)
+        cpu_small = params_from_jax(params_to_numpy(small), scfg,
+                                    device="cpu")
+        cpu, _ = forward(cpu_small, scfg, toks.cpu(), positions=pos.cpu(),
+                         patches=patches.cpu())
+    vlm_err = rel_err(card.cpu(), cpu)
+    p3 = text_mrope_positions(1, VLM_LONG, device=dev)
+    c3, s3 = mrope_cos_sin(p3, cfg.hd, cfg.rope_theta, cfg.mrope_sections)
+    c1, s1 = rope_cos_sin(text_positions(1, VLM_LONG, device=dev), cfg.hd,
+                          cfg.rope_theta)
+    tables_equal = bool(torch.equal(c3, c1) and torch.equal(s3, s1))
+    emit({"phase": "vlm", "part": "b", "n_layers": VLM_CHECK_LAYERS,
+          "compute_dtype": "float32", "image_grid": list(VLM_GRID),
+          "text_tokens": n_txt, "rel_err": vlm_err, "tol": VLM_TOL,
+          "text_mrope_equals_rope_tokens": VLM_LONG,
+          "text_mrope_equals_rope": tables_equal,
+          "finite": bool(torch.isfinite(card).all()),
+          "phase_s": time.perf_counter() - t_phase})
+    check(vlm_err <= VLM_TOL, f"vlm (b): card vs CPU {vlm_err} beyond "
+          f"{VLM_TOL}")
+    check(tables_equal, "vlm (b): text M-RoPE tables differ from RoPE's")
+    del small, cpu_small, card, cpu, toks, patches, pos, c3, s3, c1, s1
     torch.cuda.empty_cache()
 
     # ---------- analysis: python -m repro_torch.analysis's run on the card
@@ -3304,6 +3782,38 @@ def main() -> int:
     del q, k, v, k4, v4
     torch.cuda.empty_cache()
 
+    # flash at qwen2-vl-2b's 4096-token prefill (12 heads, hd 128, causal;
+    # GQA 12/2 repeated to 12), from a generator of its own; launches from
+    # phase vlm (a).
+    gen_fv = torch.Generator(device=dev)
+    gen_fv.manual_seed(SEED + 46)
+    bh, S, hd = 12, VLM_LONG, 128
+    q = torch.randn((bh, S, hd), generator=gen_fv, device=dev) * hd ** -0.5
+    k, v = (torch.randn((bh, S, hd), generator=gen_fv,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    k4, v4 = (x.float()[None] for x in (k, v))
+    pairs = bh * live_pairs(S, S, True, None)
+    vlm_flops = 4.0 * hd * pairs
+    vlm_bytes = bh * S * hd * (4 + 2 + 2 + 4)
+    t_flop = 2 * vlm_flops / PEAK_TF32_FLOPS
+    t_byte = vlm_bytes / HBM_BYTES_PER_S
+    vlm_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v), 20)
+    emit({"phase": "times", "kernel": "flash", "case": "qwen2-vl prefill",
+          "bh": bh, "s": S, "t": S, "hd": hd, "causal": True,
+          "q_dtype": "float32", "kv_dtype": "bfloat16",
+          "launches_in_phase_vlm_a": vlm_launches["flash"],
+          "live_pairs": pairs, "flops": vlm_flops, "bytes": vlm_bytes,
+          "peak": "TF32 tensor 495 TFLOP/s, 2 passes", "ms": vlm_ms,
+          "tflops": vlm_flops / vlm_ms / 1e9,
+          "plain_ms": cuda_ms(lambda: flash_ref(q, k, v), 3),
+          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+              q[None], k4, v4, is_causal=True, scale=1.0), 20),
+          "bound_ms": 1e3 * max(t_flop, t_byte),
+          "bound_by": "operations" if t_flop >= t_byte else "bytes",
+          "ffma_bound_ms": 1e3 * max(vlm_flops / PEAK_F32_FLOPS, t_byte)})
+    del q, k, v, k4, v4
+    torch.cuda.empty_cache()
+
     # ------------------- 9. where the main path's time goes (one more run)
     A = lowrank(MAIN_M, MAIN_N, MAIN_K, dtype)
     torch.cuda.synchronize()
@@ -3623,7 +4133,9 @@ def main() -> int:
           "train (c): compressed grad norm")
 
     flash["launches"] += (train_launches["flash"] + moe_flash_launches
-                          + hybrid_launches["flash"])
+                          + hybrid_launches["flash"]
+                          + xlstm_launches["flash"]
+                          + encdec_launches["flash"] + vlm_launches["flash"])
 
     emit({"kernels": [accum, pstep, coeff, apply, gram, matmul, hadamard,
                       trisolve, proj, deflate, flash, copy]})

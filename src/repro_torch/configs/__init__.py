@@ -2,10 +2,6 @@
 of ``repro.configs.paper_rid``) and the architecture registry
 ``get_config(arch)`` / ``get_smoke_config(arch)`` (counterpart of
 ``repro.configs``), with the same names and aliases.
-
-Only the architectures whose models are ported have modules here
-(``PORTED``); asking for another assigned one raises an error that names
-it and the ported ones.
 """
 from __future__ import annotations
 
@@ -15,7 +11,7 @@ from .paper_rid import (PAPER_GRID, PAPER_PROCS, PAPER_TABLE5_ERRORS,
                         SMALL_GRID, RIDCase)
 
 __all__ = ["RIDCase", "PAPER_GRID", "SMALL_GRID", "PAPER_PROCS",
-           "PAPER_TABLE5_ERRORS", "ARCHS", "ALIASES", "PORTED",
+           "PAPER_TABLE5_ERRORS", "ARCHS", "ALIASES",
            "get_config", "get_smoke_config"]
 
 ARCHS = (
@@ -30,11 +26,6 @@ ARCHS = (
     "jamba_v01_52b",
     "xlstm_125m",
 )
-
-# The architectures the port's models run so far: the attention-only text
-# stacks, dense or MoE, and the hybrid Mamba + attention stack.
-PORTED = ("granite_3_2b", "qwen3_8b", "h2o_danube_1_8b", "qwen2_7b",
-          "phi35_moe", "qwen2_moe_a2_7b", "jamba_v01_52b")
 
 # CLI aliases (assignment ids -> module names)
 ALIASES = {
@@ -56,10 +47,6 @@ def _module(arch: str):
     if name not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; known: {sorted(ARCHS)} "
                          f"(aliases: {sorted(ALIASES)})")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; ported: "
-            f"{list(PORTED)}")
     return importlib.import_module(f"{__name__}.{name}")
 
 

@@ -7,7 +7,9 @@ optionally with RID-compressed weights (counterpart of
       --smoke --device cpu --requests 8 --new-tokens 16 [--rid-rank 32]
 
 Without ``--device cpu`` it runs on the card and stops with an error if
-there is none.
+there is none.  It serves every decoder-only architecture (xlstm-125m and
+qwen2-vl-2b's text ids among them); for an encoder-decoder (whisper-tiny)
+it exits with the engine's refusal: a request carries no encoder frames.
 """
 from __future__ import annotations
 
@@ -57,9 +59,12 @@ def main(argv=None):
                                          qr_impl=args.qr_impl)
         print(compression_report(report))
 
-    eng = ServeEngine(cfg, params, max_batch=args.max_batch,
-                      max_len=args.max_len,
-                      prefill_chunk_tokens=args.prefill_chunk or None)
+    try:
+        eng = ServeEngine(cfg, params, max_batch=args.max_batch,
+                          max_len=args.max_len,
+                          prefill_chunk_tokens=args.prefill_chunk or None)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from e
     rng = np.random.default_rng(0)
     t0 = time.time()
     for i in range(args.requests):

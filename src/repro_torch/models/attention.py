@@ -3,7 +3,9 @@
   * GQA with arbitrary (n_heads, n_kv_heads) — grouped einsum, no KV
     repeat on the dense path;
   * qk-norm (qwen3), QKV bias (qwen2), sliding window (h2o-danube);
-  * causal / non-causal;
+  * causal / non-causal (whisper's encoder), cross-attention against
+    encoder states (whisper's decoder: ``attention(..., xattn_kv=)``, and
+    ``encoder_kv`` / ``cross_attention_decode`` for serving);
   * sequences longer than ``BLOCKWISE_THRESHOLD`` go through the flash
     kernel (``kernels.flash``), shorter ones through the dense masked path;
     the flash op carries the reference's hand-written VJP
@@ -12,8 +14,7 @@
     buffer under a sliding window) and chunked prefill (``attention_extend``).
 
 The reference's ``pshard`` hints and mesh head-padding are sharding; on one
-card there is nothing to shard, so they are dropped.  Cross-attention
-(``cross_attention_decode``, ``encoder_kv``) comes with whisper.
+card there is nothing to shard, so they are dropped.
 
 The cache writes are in place: ``attention_decode`` and
 ``attention_extend`` write the new keys into the given cache's tensors and
@@ -33,7 +34,8 @@ from .rope import apply_rope
 
 __all__ = ["Attention", "KVCache", "attention_init", "attention",
            "init_kv_cache", "attention_decode", "attention_extend",
-           "BLOCKWISE_THRESHOLD", "NEG_INF"]
+           "cross_attention_decode", "encoder_kv", "BLOCKWISE_THRESHOLD",
+           "NEG_INF"]
 
 NEG_INF = -1e9
 
@@ -54,10 +56,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 class Attention(nn.Module):
     """The reference's attention leaf dict as a module: ``wq``, ``wk``,
-    ``wv``, ``wo``; ``bq``/``bk``/``bv`` with ``qkv_bias``; ``q_norm`` and
-    ``k_norm`` with ``qk_norm``."""
+    ``wv``, ``wo``; ``bq``/``bk``/``bv`` with ``qkv_bias`` unless
+    ``cross`` (a cross-attention has no qkv bias); ``q_norm`` and ``k_norm``
+    with ``qk_norm``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False,
+                 device=None):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -66,7 +70,7 @@ class Attention(nn.Module):
         self.wk = _param((d, kv * hd), pdt, device)
         self.wv = _param((d, kv * hd), pdt, device)
         self.wo = _param((h * hd, d), pdt, device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = _param((h * hd,), pdt, device)
             self.bk = _param((kv * hd,), pdt, device)
             self.bv = _param((kv * hd,), pdt, device)
@@ -90,10 +94,10 @@ class Attention(nn.Module):
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, *,
-                   device=None) -> Attention:
+                   cross: bool = False, device=None) -> Attention:
     """An ``Attention`` drawn from ``gen`` with the reference's shapes and
     scales (``init_params`` fills each layer's in place the same way)."""
-    return Attention(cfg, device=device).init_(gen)
+    return Attention(cfg, cross=cross, device=device).init_(gen)
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, xq: torch.Tensor,
@@ -174,25 +178,31 @@ def _repeat_kv(t: torch.Tensor, g: int) -> torch.Tensor:
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
               cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], *,
-              causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (prefill).  Long sequences take the
-    blockwise path (the flash kernel)."""
+              causal: bool = True,
+              xattn_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  ``xattn_kv`` switches to
+    cross-attention against encoder states (no mask, no rope); a ``cos``
+    of None means no rope.  Long key sequences take the blockwise path
+    (the flash kernel)."""
     cdt = cfg.compute_dtype
-    q, k, v = _project_qkv(p, cfg, x, x)
-    if cos is not None:
+    cross = xattn_kv is not None
+    q, k, v = _project_qkv(p, cfg, x, xattn_kv if cross else x)
+    if not cross and cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     T = k.shape[1]
+    window = None if cross else cfg.sliding_window
     if T > BLOCKWISE_THRESHOLD:
         g = cfg.n_heads // cfg.n_kv_heads
         kr, vr = _repeat_kv(k, g), _repeat_kv(v, g)     # KV -> H heads
-        out = _attention_blockwise(q, kr, vr, causal=causal,
-                                   window=cfg.sliding_window)
+        out = _attention_blockwise(q, kr, vr, causal=causal and not cross,
+                                   window=window)
         return out.to(cdt) @ p.wo.to(cdt)
     scores = _gqa_scores(q, k, cfg).float()
-    mask = _mask_full(q.shape[1], T, causal=causal,
-                      window=cfg.sliding_window, device=x.device)
-    scores = scores + mask[None, None, None]
+    if not cross:
+        mask = _mask_full(q.shape[1], T, causal=causal, window=window,
+                          device=x.device)
+        scores = scores + mask[None, None, None]
     w = torch.softmax(scores, dim=-1).to(cdt)
     out = _gqa_out(w, v)
     return out @ p.wo.to(cdt)
@@ -278,3 +288,34 @@ def attention_extend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(cfg.compute_dtype)
     out = _gqa_out(w, cache.v)
     return out @ p.wo.to(cfg.compute_dtype), cache
+
+
+def cross_attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           enc_kv: tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (whisper).
+    x: (B, S, d); enc_kv: k and v (B, T, KV, hd)."""
+    k, v = enc_kv
+    h, hd = cfg.n_heads, cfg.hd
+    cdt = cfg.compute_dtype
+    q = (x @ p.wq.to(cdt)).reshape(x.shape[0], x.shape[1], h, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p.q_norm, q, cfg.norm_eps)
+    scores = _gqa_scores(q, k, cfg).float()
+    w = torch.softmax(scores, dim=-1).to(cdt)
+    out = _gqa_out(w, v)
+    return out @ p.wo.to(cdt)
+
+
+def encoder_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of the encoder states, once a sequence (whisper
+    decode): (B, T, KV, hd) each."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    cdt = cfg.compute_dtype
+    B = enc_out.shape[0]
+    k = (enc_out @ p.wk.to(cdt)).reshape(B, -1, kv, hd)
+    v = (enc_out @ p.wv.to(cdt)).reshape(B, -1, kv, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(p.k_norm, k, cfg.norm_eps)
+    return k, v

@@ -4,8 +4,7 @@ One frozen dataclass covers dense / MoE / VLM / audio / hybrid / SSM
 families; per-family extras default off.  Exact numbers live in
 ``repro_torch.configs.<arch>`` — this module only defines the schema and
 derived quantities (head_dim, padded vocab, parameter counts).  The schema
-is the reference's whole, field for field, though the port's models run
-only the dense attention-only family so far; ``compute_dtype`` and
+is the reference's whole, field for field; ``compute_dtype`` and
 ``params_dtype`` are ``torch.dtype``s.
 """
 from __future__ import annotations

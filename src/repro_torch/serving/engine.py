@@ -15,6 +15,12 @@ Design (vLLM-shaped, sized for the assignment's decode cells):
     the rest of the batch between pieces, so a 10k-token arrival no
     longer stalls every active slot for its whole prefill.
 
+It serves every decoder-only architecture: attention, Mamba and xLSTM
+stacks (a slot's state, whatever its kind, is copied in whole at
+install) and qwen2-vl's text ids.  An encoder-decoder (whisper) is
+refused when the engine is built: a request carries no encoder frames
+(the reference's engine fails at its first prefill instead).
+
 The engine is deliberately synchronous and on one card.  ``jax.jit``
 has no counterpart here: the step functions run eagerly, under
 ``torch.inference_mode``; prompts longer than 2048 tokens prefill through
@@ -107,7 +113,13 @@ class ServeEngine:
         """``params``: a ``models.Transformer`` (or None for an engine that
         only queues, sheds and expires); the engine runs on its device.
         ``device`` places the caches of a model-less engine (default
-        ``"cuda"``)."""
+        ``"cuda"``).  An encoder-decoder config raises ``ValueError``."""
+        if cfg.encdec:
+            raise ValueError(
+                f"arch {cfg.name!r} is an encoder-decoder: a "
+                f"GenerationRequest carries no encoder frames, so the engine "
+                f"cannot prefill it (serve it through models.prefill(..., "
+                f"frames=) and models.decode_step)")
         if prefill_chunk_tokens is not None:
             if prefill_chunk_tokens < 1:
                 raise ValueError(f"need prefill_chunk_tokens >= 1, got "
@@ -279,12 +291,13 @@ class ServeEngine:
             self._finish(req, "done")
             return False
         # Copy the single-sequence cache into this slot of the shared
-        # cache, in place: per layer every leaf along its batch axis (k
-        # and v of (batch, L, KV, hd); a Mamba layer's conv window and
-        # SSM state).
-        for full, one in zip(self._caches["self"], caches1["self"]):
-            for dst, src in zip(full, one):
-                dst[slot:slot + 1].copy_(src)
+        # cache, in place: under every key, per layer, every tensor of the
+        # layer's state along its batch axis (a NamedTuple's fields, a
+        # (k, v) pair's two), whatever the kind of state.
+        for key, layers in self._caches.items():
+            for full, one in zip(layers, caches1[key]):
+                for dst, src in zip(full, one):
+                    dst[slot:slot + 1].copy_(src)
         req.status = "running"
         self._active[slot] = req
         self._pos[slot] = len(req.prompt)

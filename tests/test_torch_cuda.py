@@ -1462,3 +1462,109 @@ def test_cuda_moe_train_steps_repeat_bit_for_bit():
     assert all(math.isfinite(v) for v in outs[0][0])
     assert outs[0][:2] == outs[1][:2]
     assert all(torch.equal(a, b) for a, b in zip(outs[0][2], outs[1][2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_cuda_xlstm_layer_matches_the_cpu_and_repeats(kind):
+    """One SMOKE xlstm-125m mLSTM or sLSTM layer in f32 on the card against
+    the CPU on the same weights and input: a prefill of 2 x 128 tokens (two
+    64-token chunks of the mLSTM, the state carried), its output and every
+    state leaf within 1e-5 of the largest entry (f32 sums in another
+    order), then 4 decode steps, each within 1e-5; two card prefills
+    bit-equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import xlstm as xlstm_mod
+    dev = _device()
+    cfg = get_smoke_config("xlstm_125m").replace(dtype="float32")
+    cpu = getattr(xlstm_mod, f"{kind}_init")(
+        torch.Generator().manual_seed(0), cfg)
+    card = type(cpu)(cfg, device=dev)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        a.copy_(b)
+    prefill = getattr(xlstm_mod, f"{kind}_prefill")
+    decode = getattr(xlstm_mod, f"{kind}_decode")
+    x = torch.randn((2, 132, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, wst = prefill(cpu, cfg, x[:, :128])
+    got, st = prefill(card, cfg, x[:, :128].to(dev))
+    again, st2 = prefill(card, cfg, x[:, :128].to(dev))
+    assert torch.equal(got, again) and all(
+        torch.equal(a, b) for a, b in zip(st, st2))
+    assert _rel(got.cpu(), want) <= 1e-5
+    for a, b in zip(st, wst):
+        assert _rel(a.cpu(), b) <= 1e-5
+    for t in range(128, 132):
+        w, wst = decode(cpu, cfg, x[:, t:t + 1], wst)
+        g, st = decode(card, cfg, x[:, t:t + 1].to(dev), st)
+        assert _rel(g.cpu(), w) <= 1e-5
+    for a, b in zip(st, wst):
+        assert _rel(a.cpu(), b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_serving_matches_the_cpu():
+    """The SMOKE whisper-tiny in f32: a prefill of 2 x 8 tokens with the
+    encoder frames and 4 teacher-forced decode steps on the card against
+    the CPU on the same weights, each step's logits within 1e-4 of the
+    largest entry; the cross caches hold the encoder's K/V."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, init_params,
+                                    params_from_jax, params_to_numpy,
+                                    prefill)
+    dev = _device()
+    cfg = get_smoke_config("whisper_tiny").replace(dtype="float32")
+    cpu = init_params(0, cfg, device="cpu")
+    card = params_from_jax(params_to_numpy(cpu), cfg, device=dev)
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    outs = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        lg, caches = prefill(model, cfg, toks[:, :8].to(d), max_len=16,
+                             frames=frames.to(d))
+        steps = [lg[:, 0].cpu()]
+        for i in range(4):
+            lg, caches = decode_step(model, cfg, toks[:, 8 + i:9 + i].to(d),
+                                     8 + i, caches)
+            steps.append(lg[:, 0].cpu())
+        outs.append((steps, [t.cpu() for t in caches["cross"][0]]))
+    for w, g_ in zip(outs[0][0], outs[1][0]):
+        assert _rel(g_, w) <= 1e-4
+    for w, g_ in zip(outs[0][1], outs[1][1]):
+        assert _rel(g_, w) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_forward_matches_the_cpu_and_text_mrope_is_rope():
+    """The SMOKE qwen2-vl-2b in f32: ``forward`` with patch embeddings on
+    a 2 x 4 image grid before 8 text tokens and distinct (t, h, w) ids, on
+    the card against the CPU within 1e-4 of the largest logit; the text
+    M-RoPE tables equal plain RoPE's on the card, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (forward, init_params, params_from_jax,
+                                    params_to_numpy)
+    from repro_torch.models.rope import (mrope_cos_sin, rope_cos_sin,
+                                         text_mrope_positions,
+                                         text_positions)
+    dev = _device()
+    cfg = get_smoke_config("qwen2_vl_2b").replace(dtype="float32")
+    cpu = init_params(0, cfg, device="cpu")
+    card = params_from_jax(params_to_numpy(cpu), cfg, device=dev)
+    g = torch.Generator().manual_seed(3)
+    hh, ww = torch.arange(8) // 4, torch.arange(8) % 4
+    txt = 4 + torch.arange(8)
+    pos = torch.stack([torch.cat([torch.zeros(8, dtype=torch.long), txt]),
+                       torch.cat([hh, txt]), torch.cat([ww, txt])])[:, None]
+    toks = torch.randint(0, cfg.vocab_size, (1, 16), generator=g)
+    patches = torch.zeros((1, 16, cfg.d_model))
+    patches[:, :8] = torch.randn((1, 8, cfg.d_model), generator=g)
+    with torch.no_grad():
+        want, _ = forward(cpu, cfg, toks, positions=pos, patches=patches)
+        got, _ = forward(card, cfg, toks.to(dev), positions=pos.to(dev),
+                         patches=patches.to(dev))
+    assert _rel(got.cpu(), want) <= 1e-4
+    p3 = text_mrope_positions(2, 4096, device=dev)
+    c3, s3 = mrope_cos_sin(p3, 128, 1e6, (16, 24, 24))
+    c1, s1 = rope_cos_sin(text_positions(2, 4096, device=dev), 128, 1e6)
+    assert torch.equal(c3, c1) and torch.equal(s3, s1)

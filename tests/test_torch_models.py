@@ -81,10 +81,18 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_config_aliases_and_unported_arch():
+    """Every architecture now resolves, by alias and by module name, to
+    the reference's config (no arch is left unported); an unknown name
+    still raises."""
     assert tcfgs.get_config("granite-3-2b").n_layers == 40
     assert tcfgs.get_config("h2o-danube-1.8b").hd == 80
-    with pytest.raises(NotImplementedError, match="xlstm.*ported.*granite"):
-        tcfgs.get_config("xlstm-125m")
+    assert set(tcfgs.ALIASES.values()) == set(tcfgs.ARCHS) == set(jcfgs.ARCHS)
+    for alias, name in tcfgs.ALIASES.items():
+        for getter in ("get_config", "get_smoke_config"):
+            got = getattr(tcfgs, getter)(alias)
+            assert got == getattr(tcfgs, getter)(name)
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                getattr(jcfgs, getter)(alias))
     with pytest.raises(ValueError, match="unknown arch 'nope'"):
         tcfgs.get_smoke_config("nope")
 
@@ -97,26 +105,32 @@ def test_config_dtypes_are_torch():
 
 
 def test_unported_families_raise():
-    """An xLSTM mixer, the whisper encoder-decoder and M-RoPE still raise;
-    MoE on every other layer and a hybrid Mamba mixer now build
-    (tests/test_torch_mamba.py holds them to the reference)."""
+    """No family raises any more: an xLSTM mixer, the whisper
+    encoder-decoder and M-RoPE build and run ``forward`` on the CPU, as do
+    MoE on every other layer and a hybrid Mamba mixer
+    (tests/test_torch_xlstm.py, test_torch_encdec_vlm.py and
+    test_torch_mamba.py hold them to the reference)."""
     base = tcfgs.get_smoke_config("granite_3_2b")
-    for cfg, what in ((base.replace(family="ssm", slstm_at=(1,)), "xLSTM"),
-                      (base.replace(encdec=True, n_encoder_layers=1),
-                       "whisper"),
-                      (base.replace(mrope=True), "M-RoPE")):
-        with pytest.raises(NotImplementedError, match=what):
-            tmodels.init_params(0, cfg, device="cpu")
     moe2 = base.replace(moe=True, moe_layer_period=2, n_experts=4,
                         n_experts_active=2, moe_d_ff=32)
     hybrid = base.replace(family="hybrid", attn_layer_period=2)
-    for cfg in (moe2, hybrid):
+    xlstm = base.replace(family="ssm", slstm_at=(1,), d_ff=0)
+    encdec = base.replace(encdec=True, n_encoder_layers=1,
+                          n_frontend_tokens=6)
+    mrope = base.replace(mrope=True, mrope_sections=(2, 3, 3))
+    for cfg in (moe2, hybrid, xlstm, encdec, mrope):
         model = tmodels.init_params(0, cfg, device="cpu")
+        kw = ({"frames": torch.zeros((1, 6, cfg.d_model))} if cfg.encdec
+              else {})
         lg, _ = tmodels.forward(model, cfg,
-                                torch.zeros((1, 4), dtype=torch.long))
+                                torch.zeros((1, 4), dtype=torch.long), **kw)
         assert lg.shape == (1, 4, cfg.padded_vocab)
+        assert bool(torch.isfinite(lg).all())
     assert [hasattr(b, "moe") for b in
             tmodels.init_params(0, moe2, device="cpu").blocks] == [False, True]
+    assert [type(b.mixer).__name__ for b in
+            tmodels.init_params(0, xlstm, device="cpu").blocks] == [
+                "MLSTM", "SLSTM"]
 
 
 # ------------------------------------------------------------ components
