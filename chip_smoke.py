@@ -237,6 +237,21 @@ in order, printing one JSON line per phase:
                  8 over 2 pod groups within 5 % of the dense loss at the
                  reference test's settings, and at lr 3e-4 cutting the
                  loss by at least half the dense run's drop.
+  11. mesh    -- the sharded steps on a one-rank NCCL mesh (1, 1)
+                 ("data", "model"), granite-3-2b at full width and depth:
+                 (a) 3 sharded train steps of phase train's batches in
+                 mode tp, losses within 1e-5 of phase train's (bit-equality
+                 reported), and with cast_params within 1e-5 of an
+                 unsharded cast run; warm step, tokens/s, peak, the DTensor
+                 overhead against an unsharded run of the same config
+                 beside it (plain, tp, cast, plain cast), 80 flash launches a
+                 step; (b) the sharded prefill of 4 x 4000 tokens and 16
+                 greedy decode steps against the plain ones (the serve
+                 phase's tolerance, tokens equal, 40 flash launches on
+                 each path); (c) the dry-run of five production cells on
+                 torch's fake backend (a CPU process a cell, after (a) and
+                 (b)): each ``ok``, its per-device peak beside the H100's
+                 80 GB, its collective bytes by kind.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -245,6 +260,7 @@ the rest of the repository beside it, the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -394,6 +410,23 @@ VLM_SHORTS, VLM_LONG, VLM_CHECK_LAYERS, VLM_GRID, VLM_TOL = (
 # 1e-2 (dk and dv are rounded to bf16 on both sides, a bf16 step apart
 # where they round differently).
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SMALL_LAYERS = 5, 2, 4096, 2
+# The mesh phase: the sharded steps on a one-rank NCCL mesh (1, 1)
+# ("data", "model") at granite-3-2b's full width and depth: MESH_STEPS
+# train steps of phase train's batch in mode tp, their losses within
+# MESH_LOSS_TOL of phase train's (the same seed, batches and schedule), and
+# with cast_params within MESH_LOSS_TOL of an unsharded cast run; the
+# sharded prefill of MESH_BATCH
+# prompts of MESH_PROMPT tokens and MESH_NEW greedy decode steps against
+# the plain ones (the serve phase's CHUNK_TOL, tokens equal).  (c) the
+# dry-run of MESH_DRY_CELLS on torch's fake backend, a CPU process a cell,
+# started after (a) and (b).
+MESH_STEPS, MESH_LOSS_TOL = 3, 1e-5
+MESH_DRY_TIMEOUT = 600
+MESH_BATCH, MESH_PROMPT, MESH_NEW = 4, 4000, 16
+MESH_DRY_CELLS = ("granite-3-2b:train_4k:pod", "qwen2-moe-a2.7b:train_4k:pod",
+                  "phi3.5-moe-42b-a6.6b:train_4k:pod",
+                  "qwen2-vl-2b:prefill_32k:pod",
+                  "jamba-v0.1-52b:long_500k:multipod")
 TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # The stream phase's chunk: 8192 rows (1.07 GB of the main row in f64, 2.1
 # GB of the paper's 64 GB row in c128), a multiple of ACCUM_BLOCK.
@@ -4132,7 +4165,214 @@ def main() -> int:
               for c in compressed.values()),
           "train (c): compressed grad norm")
 
-    flash["launches"] += (train_launches["flash"] + moe_flash_launches
+    # ------------- mesh: the sharded steps on a one-rank NCCL mesh
+    def run_mesh_phase(cfg, tcfg, plain_losses, plain_secs, plain_peak):
+        """(a) the sharded train step against phase train's, without and
+        with cast_params; (b) the sharded prefill and greedy decode
+        against the plain ones.  Returns the flash launches it counted."""
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.sharding import distribute_params
+        from repro_torch.launch.steps import (sharded_decode_step,
+                                              sharded_prefill)
+        plain_warm = sum(plain_secs[1:]) / len(plain_secs[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flash_total = 0
+        with bench_error.one_rank_group(dev):
+            mesh = make_host_mesh(device_type="cuda")
+            def run(tc, on_mesh):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                reset_counts()
+                out = train_loop(cfg, tc, global_batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, steps=MESH_STEPS,
+                                 log=lambda *a: None, device=dev,
+                                 mesh=mesh if on_mesh else None)
+                torch.cuda.synchronize()
+                secs = [h["seconds"] for h in out["history"]]
+                res = {"losses": out["losses"],
+                       "grad_norms": [h["grad_norm"] for h in out["history"]],
+                       "step_s": secs,
+                       "warm_step_s": sum(secs[1:]) / len(secs[1:]),
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated(),
+                       "launches": read_counts()}
+                del out
+                torch.cuda.empty_cache()
+                return res
+
+            # Each sharded run has an unsharded run of its config beside
+            # it (plain tp, sharded tp, sharded cast, plain cast), whose
+            # warm step its overhead is taken against.  The tp run's
+            # losses are held to phase train's; the cast run's to the
+            # unsharded cast run's: the pre-cast bf16 embedding and head
+            # (the reference's _KEEP_F32 leaves them out) round the f32
+            # logits, so it is not phase train's math.
+            cast_tc = tcfg._replace(cast_params=True)
+            plain_tp = run(tcfg, False)
+            sharded_tp = run(tcfg, True)
+            sharded_cast = run(cast_tc, True)
+            plain_cast = run(cast_tc, False)
+            flash_total += sum(r["launches"]["flash"] for r in (
+                plain_tp, sharded_tp, sharded_cast, plain_cast))
+            runs = {}
+            for name, r, ref, beside in (
+                    ("tp", sharded_tp, plain_losses[:MESH_STEPS], plain_tp),
+                    ("tp+cast_params", sharded_cast, plain_cast["losses"],
+                     plain_cast)):
+                r.update(
+                    plain_losses=ref,
+                    loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                     zip(r["losses"], ref)),
+                    bit_equal=r["losses"] == ref,
+                    tokens_per_s=tokens / r["warm_step_s"],
+                    plain_step_s=beside["step_s"],
+                    plain_warm_step_s=beside["warm_step_s"],
+                    dtensor_overhead=r["warm_step_s"]
+                    / beside["warm_step_s"] - 1.0,
+                    plain_max_memory_allocated=beside[
+                        "max_memory_allocated"],
+                    flash_launches_per_step=r["launches"]["flash"]
+                    / MESH_STEPS)
+                runs[name] = r
+            runs["tp"].update(
+                phase_train_warm_step_s=plain_warm,
+                phase_train_max_memory_allocated=plain_peak,
+                plain_beside_losses_equal=plain_tp["losses"]
+                == plain_losses[:MESH_STEPS])
+            runs["tp+cast_params"]["vs_phase_train_rel"] = max(
+                abs(a - b) / abs(b) for a, b in
+                zip(runs["tp+cast_params"]["losses"], plain_losses))
+            emit({"phase": "mesh", "part": "a", "arch": cfg.name,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+                  "seq": TRAIN_SEQ, "steps": MESH_STEPS, "mode": "tp",
+                  "runs": runs, "tol": MESH_LOSS_TOL})
+            for name, r in runs.items():
+                check(r["loss_rel_err"] <= MESH_LOSS_TOL,
+                      f"mesh (a) {name}: losses {r['losses']} against phase "
+                      f"train's {r['plain_losses']}")
+                check(r["launches"]["flash"] == 2 * cfg.n_layers * MESH_STEPS
+                      and all(v == 0 for k, v in r["launches"].items()
+                              if k != "flash"),
+                      f"mesh (a) {name}: launches {r['launches']}")
+
+            # (b) the sharded prefill and greedy decode against the plain
+            model = init_params(SEED, cfg, device=dev)
+            gen_m = torch.Generator(device=dev)
+            gen_m.manual_seed(SEED + 28)
+            toks = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT),
+                                 generator=gen_m, device=dev)
+            max_len = MESH_PROMPT + MESH_NEW
+
+            def greedy(prefill_fn, decode_fn):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                lg, caches = prefill_fn(toks)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                n_flash = read_counts()["flash"]
+                first = lg.float().clone()
+                out, steps_s = [], []
+                nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+                for i in range(MESH_NEW):
+                    out.append(nxt)
+                    t0 = time.perf_counter()
+                    lg, caches = decode_fn(nxt, MESH_PROMPT + i, caches)
+                    torch.cuda.synchronize()
+                    steps_s.append(time.perf_counter() - t0)
+                    nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+                del caches
+                return (first, torch.cat(out, 1), n_flash, prefill_s,
+                        sum(steps_s[1:]) / len(steps_s[1:]))
+
+            plain = greedy(
+                lambda t: prefill(model, cfg, t, max_len=max_len),
+                lambda t, p, c: decode_step(model, cfg, t, p, c))
+            torch.cuda.empty_cache()
+            pf, pshard, _, _ = sharded_prefill(cfg, mesh, MESH_BATCH, max_len)
+            dfn, _, _ = sharded_decode_step(cfg, mesh, MESH_BATCH, max_len)
+            distribute_params(model, mesh, cfg, shardings=pshard)
+            sharded = greedy(
+                lambda t: tuple_full(pf(model, {"tokens": t})),
+                lambda t, p, c: tuple_full(dfn(model, t, p, c)))
+            flash_total += plain[2] + sharded[2]
+            a, b = sharded[0].flatten(), plain[0].flatten()
+            cross = {"rel_l2": float((a - b).norm() / b.norm()),
+                     "max_abs_over_max": float((a - b).abs().max()
+                                               / b.abs().max())}
+            emit({"phase": "mesh", "part": "b", "arch": cfg.name,
+                  "batch": MESH_BATCH, "prompt": MESH_PROMPT,
+                  "new_tokens": MESH_NEW, "logits": cross, "tol": CHUNK_TOL,
+                  "logits_bit_equal": bool(torch.equal(a, b)),
+                  "tokens_equal": bool(torch.equal(sharded[1], plain[1])),
+                  "flash_launches": {"sharded": sharded[2],
+                                     "plain": plain[2]},
+                  "prefill_s": {"sharded": sharded[3], "plain": plain[3]},
+                  "decode_step_s": {"sharded": sharded[4],
+                                    "plain": plain[4]},
+                  "finite": bool(torch.isfinite(a).all())})
+            check(bool(torch.isfinite(a).all()), "mesh (b): logits not finite")
+            check(all(cross[k] <= CHUNK_TOL[k] for k in CHUNK_TOL),
+                  f"mesh (b): sharded vs plain prefill {cross}")
+            check(torch.equal(sharded[1], plain[1]),
+                  "mesh (b): greedy tokens differ")
+            check(sharded[2] == plain[2] == cfg.n_layers,
+                  f"mesh (b): flash launched {sharded[2]} (sharded) and "
+                  f"{plain[2]} (plain) times, expected {cfg.n_layers}")
+            del model, toks, plain, sharded
+            torch.cuda.empty_cache()
+        return {"flash_launches": flash_total}
+
+    def tuple_full(res):
+        """(logits as a plain tensor, caches): a DTensor's whole value."""
+        lg, caches = res
+        return lg.full_tensor(), caches
+
+    mesh_res = run_mesh_phase(cfg, tcfg, [h["loss"] for h in hist],
+                              [h["seconds"] for h in hist], train_peak)
+    mesh_flash = mesh_res.pop("flash_launches")
+    # (c) the dry-run on torch's fake backend: CPU work, after every timed
+    # phase of the card, one process a cell (each joins the fake group),
+    # all started together; any still running at exit is killed.
+    dry_t0 = time.perf_counter()
+    dry_outs = [tempfile.TemporaryFile(mode="w+") for _ in MESH_DRY_CELLS]
+    dry_procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--jsonl",
+         f"--cell={c}"], stdout=f, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+                 CUDA_VISIBLE_DEVICES=""))
+        for c, f in zip(MESH_DRY_CELLS, dry_outs)]
+    atexit.register(lambda: [p.kill() for p in dry_procs
+                             if p.poll() is None])
+    dry_lines, dry_exits = [], []
+    for p, f in zip(dry_procs, dry_outs):
+        dry_exits.append(p.wait(timeout=MESH_DRY_TIMEOUT))
+        f.seek(0)
+        dry_lines += f.read().splitlines()
+    dry_s = time.perf_counter() - dry_t0
+    records = [json.loads(ln) for ln in dry_lines if ln.startswith("{")]
+    emit({"phase": "mesh", "part": "c", "backend": "fake (CPU, no device)",
+          "cells": [{k: r.get(k) for k in (
+              "arch", "shape", "mesh", "mesh_shape", "status", "seconds",
+              "flops", "peak_bytes_per_device", "hbm_bytes_per_device",
+              "param_bytes_per_device", "grad_bytes_per_device",
+              "opt_bytes_per_device", "collective_bytes",
+              "collective_total", "interpod_bytes",
+              "propagations_excluded", "peak_by_origin", "error",
+              "traceback")}
+              for r in records],
+          "process_exits": dry_exits, "wall_s": dry_s})
+    check(all(rc == 0 for rc in dry_exits)
+          and len(records) == len(MESH_DRY_CELLS)
+          and all(r["status"] == "ok" for r in records),
+          f"mesh (c): dry-run exits {dry_exits}, statuses "
+          f"{[(r['arch'], r['status'], r.get('error')) for r in records]}; "
+          f"output tail {dry_lines[-5:]}")
+
+    flash["launches"] += (mesh_flash + train_launches["flash"]
+                          + moe_flash_launches
                           + hybrid_launches["flash"]
                           + xlstm_launches["flash"]
                           + encdec_launches["flash"] + vlm_launches["flash"])

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.rng import check_device
+from ..kernels.common import is_dtensor
 
 __all__ = ["save_pytree", "restore_pytree", "latest_step",
            "CheckpointManager"]
@@ -59,6 +60,16 @@ def _flatten_with_names(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _sharding_leaves(tree) -> list:
+    """The shardings of a ``restore_pytree(shardings=)`` tree, in
+    ``_flatten_with_names``' order (a sharding, or None, is a leaf)."""
+    if tree is None or hasattr(tree, "placements"):
+        return [tree]
+    if isinstance(tree, dict):
+        return [s for key in sorted(tree) for s in _sharding_leaves(tree[key])]
+    return [s for v in tree for s in _sharding_leaves(v)]
+
+
 def _unflatten(like, leaves: list):
     """``like``'s structure with its leaves taken from ``leaves`` in the
     order of ``_flatten_with_names``."""
@@ -70,7 +81,11 @@ def _unflatten(like, leaves: list):
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a CPU tensor's shares its memory)."""
+    """A leaf as a host numpy array (a CPU tensor's shares its memory).  A
+    DTensor is gathered whole first: a collective that every rank of its
+    mesh must make, in the same order."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -94,11 +109,21 @@ def _fsync_file(path: str) -> None:
         os.close(fd)
 
 
-def save_pytree(directory: str, step: int, tree) -> str:
+def save_pytree(directory: str, step: int, tree, *, write: bool = True
+                ) -> str:
     """Write ``tree`` as step ``step`` atomically and durably: every leaf
     and the manifest land in ``.tmp-step_N`` and are fsynced, the tmp
     directory is fsynced, then one rename publishes the step and the parent
-    directory is fsynced.  Returns the step's directory."""
+    directory is fsynced.  Returns the step's directory.
+
+    DTensor leaves are stored whole, whatever the mesh that wrote them
+    (``restore_pytree(..., shardings=)`` lays them out on another): every
+    rank of their mesh calls, and all but one pass ``write=False``, which
+    gathers and writes nothing."""
+    if not write:
+        for _, leaf in _flatten_with_names(tree):
+            _to_numpy(leaf)
+        return os.path.join(directory, f"step_{step:06d}")
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:06d}")
     tmp = os.path.join(directory, f".tmp-step_{step:06d}")
@@ -139,15 +164,23 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_pytree(directory: str, step: int, like, *, host: bool = False,
-                   device="cuda"):
+                   device="cuda", shardings=None):
     """Restore step ``step`` into the structure of ``like`` (a tree whose
     leaves have ``.shape`` and ``.dtype``: tensors or numpy arrays).  Each
     leaf's file crc32 is checked against the manifest, its shape against
     ``like``'s.  ``host=True`` returns numpy leaves with the stored bits
     and dtypes; otherwise tensors on ``device`` (default the card, which
-    raises without one; ``"cpu"`` restores to host tensors)."""
+    raises without one; ``"cpu"`` restores to host tensors).
+
+    ``shardings``: a tree of ``like``'s structure whose leaves are
+    ``launch.sharding.NamedSharding`` (or None): the re-shard on restore.
+    Each such leaf comes back as a DTensor laid out by it, this rank
+    keeping its own block of the stored whole, with no communication and
+    whatever mesh wrote it."""
     if not host:
         device = check_device(device)
+    shard_leaves = (_sharding_leaves(shardings) if shardings is not None
+                    else None)
     path = os.path.join(directory, f"step_{step:06d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
@@ -166,7 +199,12 @@ def restore_pytree(directory: str, step: int, like, *, host: bool = False,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
                              f"expected {tuple(leaf.shape)}")
-        out.append(arr if host else torch.from_numpy(arr).to(device))
+        leaf_out = arr if host else torch.from_numpy(arr).to(device)
+        shd = shard_leaves[len(out)] if shard_leaves is not None else None
+        if shd is not None and not host:
+            from ..models.pshard import distribute
+            leaf_out = distribute(leaf_out, shd.mesh, shd.placements)
+        out.append(leaf_out)
     return _unflatten(like, out)
 
 
@@ -175,13 +213,16 @@ class CheckpointManager:
     snapshots the tree to host (a device tensor's copy; a CPU tensor's or
     numpy array's memory is shared, so the caller does not change what a
     pending write still reads) and hands the file writes to a background
-    thread; ``wait`` joins it and re-raises its error."""
+    thread; ``wait`` joins it and re-raises its error.  DTensor leaves are
+    gathered whole (every rank of their mesh saves); ``write=False`` gathers
+    and writes nothing, for every rank of a mesh but one."""
 
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_write: bool = True):
+                 async_write: bool = True, write: bool = True):
         self.directory = directory
         self.keep = keep
         self.async_write = async_write
+        self.write = write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -197,6 +238,8 @@ class CheckpointManager:
         self.wait()                       # one write in flight at a time
         names = _flatten_with_names(tree)
         host_tree = _unflatten(tree, [_to_numpy(v) for _, v in names])
+        if not self.write:                # gathered (DTensors), not written
+            return
 
         def write():
             try:

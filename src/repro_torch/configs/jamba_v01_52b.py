@@ -4,10 +4,9 @@ other layer.  [arXiv:2403.19887; hf]
 
 Pattern period 8 (one attention layer per 8, offset 4 as released);
 MoE every 2nd layer.  The reference's launcher shards the 16 experts over
-its ``model`` axis (EP); the port runs on one card, where one period of 8
-layers at full width (1.326e10 parameters, 53.1 GB in f32) is the
-largest jamba that fits: 32 layers are 206 GB in f32 (sharding is
-ROADMAP Queue A item 3.7).
+its ``model`` axis (EP), and so does the port's (``launch.sharding``); on
+one card one period of 8 layers at full width (1.326e10 parameters, 53.1
+GB in f32) is the largest jamba that fits: 32 layers are 206 GB in f32.
 """
 from ..models.config import ModelConfig
 

@@ -2,8 +2,8 @@
 vocab=32064, MoE 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct; hf]
 
 The reference's launcher shards the 16 experts over its 16-wide ``model``
-axis (expert parallelism); the port runs on one card and holds all 16
-experts of a layer (sharding is ROADMAP Queue A item 3.7).
+axis (expert parallelism), and so does the port's (``launch.sharding``);
+on one card it holds all 16 experts of a layer.
 """
 from ..models.config import ModelConfig
 

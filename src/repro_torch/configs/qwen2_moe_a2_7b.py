@@ -3,9 +3,8 @@ shared path), MoE 60 routed experts top-4 + 4 shared.
 [hf:Qwen/Qwen1.5-MoE-A2.7B; hf]
 
 The reference's launcher shards the expert hidden dim (TP-MoE), since 60
-experts do not divide its 16-wide ``model`` axis; the port runs on one
-card and holds all 60 experts of a layer (sharding is ROADMAP Queue A
-item 3.7).
+experts do not divide its 16-wide ``model`` axis; so does the port's
+(``launch.sharding``); on one card it holds all 60 experts of a layer.
 """
 from ..models.config import ModelConfig
 

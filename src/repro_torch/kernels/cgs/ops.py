@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from .kernel import panel_deflate_kernel, project_out_kernel
 from .ref import panel_deflate_ref, project_out_ref
 
@@ -33,6 +34,7 @@ def _common(q: torch.Tensor, z: torch.Tensor):
 def project_out(q: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``z - q (q^H z)`` with ``q`` (l x k) orthonormal and ``z``
     (l x n)."""
+    refuse_dtensor("project_out", q, z)
     q, z = _common(q, z)
     if z.device.type == "cpu":
         return project_out_ref(q, z)
@@ -43,6 +45,7 @@ def panel_deflate(q: torch.Tensor, z: torch.Tensor):
     """Panel trailing update ``(z - q (q^H z), q^H z)`` with ``q`` (l x b)
     one orthonormal panel of the blocked pivoted QR and ``z`` (l x n) the
     trailing residual; on the card ``b <= MAX_PANEL`` (64)."""
+    refuse_dtensor("panel_deflate", q, z)
     q, z = _common(q, z)
     if z.device.type == "cpu":
         return panel_deflate_ref(q, z)

@@ -12,13 +12,15 @@ fit one block's shared memory, and a known-bad call that must raise
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
 
 __all__ = ["cdiv", "round_up", "pad_to", "acc_dtype_for", "KERNEL_DTYPES",
-           "LaunchCounter", "dtype_code", "check_kernel_args", "type_name",
+           "LaunchCounter", "dtype_code", "check_kernel_args",
+           "refuse_dtensor", "type_name",
            "Launch", "Example", "KernelContract", "SMEM_BUDGET_BYTES",
            "MAX_THREADS_PER_BLOCK", "GEMM_THREADS", "gemm_tile",
            "DMMA_BM", "DMMA_BN", "DMMA_BK", "DMMA_THREADS", "DMMA_WM",
@@ -98,6 +100,23 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor, without importing
+    ``torch.distributed.tensor`` (a second of import on a path that never
+    made one): no DTensor exists before that module is loaded."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise a ``TypeError`` naming the kernel if any argument is a DTensor:
+    a kernel without a sharded wrapper never gathers one quietly (only the
+    flash op maps a DTensor to its local shards)."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name}: the kernel takes no DTensor (it has no "
+                        f"sharded wrapper); pass local tensors")
 
 
 # ptxas's names of the element types (kernels/_build.py, parse_ptxas).

@@ -1,3 +1,3 @@
-from .ops import BLOCK_KV, FlashAttention, flash_attention
+from .ops import BLOCK_KV, FlashAttention, flash_attention, map_heads
 
-__all__ = ["flash_attention", "FlashAttention", "BLOCK_KV"]
+__all__ = ["flash_attention", "FlashAttention", "BLOCK_KV", "map_heads"]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from .kernel import panel_gram_kernel
 from .ref import panel_gram_ref
 
@@ -19,6 +20,7 @@ def panel_gram(c: torch.Tensor, z: torch.Tensor):
     """``(c^H c, c^H z)`` with ``c`` (l x b) a candidate panel and ``z``
     (l x n) the local residual shard, both products from one pass over
     ``z``."""
+    refuse_dtensor("panel_gram", c, z)
     if c.shape[0] != z.shape[0]:
         raise ValueError(f"c rows ({c.shape[0]}) must match z rows "
                          f"({z.shape[0]})")

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from .kernel import panel_apply_kernel, panel_coeff_kernel, panel_step_kernel
 from .ref import (panel_apply_norms_ref, panel_apply_ref, panel_coeff_ref,
                   panel_step_ref)
@@ -41,6 +42,7 @@ def panel_step(c: torch.Tensor, z: torch.Tensor, *, emit_w: bool = True):
     ``(Q_p, Z - Q_p W, W, colnorms^2(Z - Q_p W))``.  With
     ``emit_w=False`` the ``W`` slot is ``None`` (the kernel skips its
     store; ``blocked_pivoted_qr`` recomputes ``R = Q^H Y`` at the end)."""
+    refuse_dtensor("panel_step", c, z)
     _check_rows("c", c, z)
     c, z = _common(c, z)
     if c.device.type == "cpu":
@@ -55,6 +57,7 @@ def panel_coeff(c: torch.Tensor, z: torch.Tensor, res2: torch.Tensor):
     the residual ``z`` (l x n) and its real norms ``res2`` (n,).  The
     downdated norms make the next panel's pivot collective independent of
     the deflation (stage B), so it can run while ``panel_apply`` does."""
+    refuse_dtensor("panel_coeff", c, z, res2)
     _check_rows("c", c, z)
     if tuple(res2.shape) != (z.shape[1],):
         raise ValueError(f"res2 shape {tuple(res2.shape)} must be "
@@ -76,6 +79,7 @@ def panel_apply(qp: torch.Tensor, w: torch.Tensor, z: torch.Tensor, *,
     ``panel_coeff``.  ``emit_norms=True`` returns ``(O, colnorms^2(O))``
     from the same pass: the exact pivot norms of the deflated slab, which a
     norm-recompute panel puts in place of the drifting downdate."""
+    refuse_dtensor("panel_apply", qp, w, z)
     _check_rows("qp", qp, z)
     if tuple(w.shape) != (qp.shape[1], z.shape[1]):
         raise ValueError(f"w shape {tuple(w.shape)} must be "

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from .kernel import ACCUM_BLOCK, sketch_accum_kernel
 from .ref import accum_dtype_for, sketch_accum_ref
 
@@ -27,6 +28,7 @@ def sketch_accum(x: torch.Tensor, a: torch.Tensor,
     the reduction over ``a``'s rows pinned to canonical ``ACCUM_BLOCK``
     blocks.  ``x``: (l, m) operator columns; ``a``: (m, n) row chunk;
     ``acc``: (l, n) running accumulator (``None`` = zeros)."""
+    refuse_dtensor("sketch_accum", x, a, acc)
     l, m = x.shape
     m2, n = a.shape
     if m != m2:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from ..sketch_accum import accum_dtype_for
 from .kernel import sketch_matmul_kernel
 from .ref import sketch_matmul_ref
@@ -23,6 +24,7 @@ __all__ = ["sketch_matmul"]
 
 def sketch_matmul(omega: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """``omega @ a`` for ``omega`` (l, m), ``a`` (m, n), real or complex."""
+    refuse_dtensor("sketch_matmul", omega, a)
     if omega.shape[1] != a.shape[0]:
         raise ValueError(f"omega columns ({omega.shape[1]}) must match a "
                          f"rows ({a.shape[0]})")

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..common import cdiv
+from ..common import cdiv, refuse_dtensor
 from .kernel import MAX_SLAB_LOG2, fwht_pass_kernel
 from .ref import fwht_ref, next_pow2
 
@@ -37,6 +37,7 @@ def fwht_factors(m: int) -> list[int]:
 
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Orthonormal FWHT along dim 0 of ``x`` (m, n), ``m`` a power of two."""
+    refuse_dtensor("fwht", x)
     m = x.shape[0]
     if m & (m - 1) or m == 0:
         raise ValueError(f"FWHT length must be a power of two, got {m}")
@@ -61,6 +62,7 @@ def srht(signs: torch.Tensor, a: torch.Tensor,
     padding, gather and scale are tensor ops around ``fwht``, in
     ``srht_ref``'s order: the plain transform on the CPU, the kernel on
     the card."""
+    refuse_dtensor("srht", signs, a, rows)
     if signs.shape != (a.shape[0],):
         raise ValueError(f"signs shape {tuple(signs.shape)} must be "
                          f"({a.shape[0]},)")

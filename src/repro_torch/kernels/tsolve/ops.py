@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import refuse_dtensor
 from ..sketch_accum import accum_dtype_for
 from .kernel import tsolve_kernel
 from .ref import tsolve_ref
@@ -24,6 +25,7 @@ __all__ = ["tsolve"]
 def tsolve(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """Solve ``triu(r1) @ T = r2``: ``r1`` (k, k), ``r2`` (k, n) -> ``T``
     (k, n).  Only the upper triangle of ``r1`` is read."""
+    refuse_dtensor("tsolve", r1, r2)
     k = r2.shape[0]
     if tuple(r1.shape) != (k, k):
         raise ValueError(f"r1 shape {tuple(r1.shape)} must be {(k, k)} for "

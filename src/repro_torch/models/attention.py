@@ -13,8 +13,12 @@
   * decode against a pre-allocated KV cache (one token per step, a ring
     buffer under a sliding window) and chunked prefill (``attention_extend``).
 
-The reference's ``pshard`` hints and mesh head-padding are sharding; on one
-card there is nothing to shard, so they are dropped.
+Under a mesh (``pshard.use_mesh``) the blockwise path lays q, k and v out
+with heads over `model` and batch over the dp axes, and pads the heads
+with zeros to a multiple of the `model` axis first when it does not
+divide them (qwen2-7b's 28, qwen2-vl's 12 on a 16-wide axis), slicing the
+padding off the output: the reference's head padding.  Without a mesh
+neither happens.
 
 The cache writes are in place: ``attention_decode`` and
 ``attention_extend`` write the new keys into the given cache's tensors and
@@ -27,9 +31,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..kernels.flash import flash_attention
+from ..kernels.flash import flash_attention, map_heads
 from .config import ModelConfig
 from .norms import RMSNorm, rmsnorm
+from .pshard import (as_dtensor, axis_sizes, current_mesh, hint, is_dtensor,
+                     pad_dim, split_evenly, wrap)
 from .rope import apply_rope
 
 __all__ = ["Attention", "KVCache", "attention_init", "attention",
@@ -112,9 +118,9 @@ def _project_qkv(p: Attention, cfg: ModelConfig, xq: torch.Tensor,
         q = q + p.bq.to(cdt)
         k = k + p.bk.to(cdt)
         v = v + p.bv.to(cdt)
-    q = q.reshape(q.shape[:-1] + (h, hd))
-    k = k.reshape(k.shape[:-1] + (kv, hd))
-    v = v.reshape(v.shape[:-1] + (kv, hd))
+    q = split_evenly(q, -1, h).reshape(q.shape[:-1] + (h, hd))
+    k = split_evenly(k, -1, kv).reshape(k.shape[:-1] + (kv, hd))
+    v = split_evenly(v, -1, kv).reshape(v.shape[:-1] + (kv, hd))
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -168,6 +174,16 @@ def _attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q.float(), k, v, causal=causal, window=window)
 
 
+def _padded_heads(H: int) -> int:
+    """H rounded up to a multiple of the active mesh's `model` axis (H
+    itself without a mesh or without that axis)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return H
+    ms = axis_sizes(mesh).get("model", 1)
+    return -(-H // ms) * ms
+
+
 def _repeat_kv(t: torch.Tensor, g: int) -> torch.Tensor:
     """(B, T, KV, hd) -> (B, T, KV*g, hd), each kv head ``g`` times in a
     row (``repeat_interleave`` on dim 2) as a broadcast, whose gradient is
@@ -195,16 +211,29 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if T > BLOCKWISE_THRESHOLD:
         g = cfg.n_heads // cfg.n_kv_heads
         kr, vr = _repeat_kv(k, g), _repeat_kv(v, g)     # KV -> H heads
+        H = q.shape[2]
+        Hp = _padded_heads(H)
+        if Hp != H:
+            # Zero heads are exact: q = k = v = 0 gives a uniform softmax
+            # over zero values, a zero output, sliced off below.
+            q, kr, vr = (pad_dim(t, 2, Hp - H) for t in (q, kr, vr))
+        q, kr, vr = (hint(t, "dp", None, "model", None) for t in (q, kr, vr))
         out = _attention_blockwise(q, kr, vr, causal=causal and not cross,
                                    window=window)
+        if Hp != H:
+            out = out[..., :H * cfg.hd]
         return out.to(cdt) @ p.wo.to(cdt)
-    scores = _gqa_scores(q, k, cfg).float()
-    if not cross:
-        mask = _mask_full(q.shape[1], T, causal=causal, window=window,
-                          device=x.device)
-        scores = scores + mask[None, None, None]
-    w = torch.softmax(scores, dim=-1).to(cdt)
-    out = _gqa_out(w, v)
+    def dense(q, k, v):
+        scores = _gqa_scores(q, k, cfg).float()
+        if not cross:
+            mask = _mask_full(q.shape[1], T, causal=causal, window=window,
+                              device=x.device)
+            scores = scores + mask[None, None, None]
+        w = torch.softmax(scores, dim=-1).to(cdt)
+        return _gqa_out(w, v)
+
+    # Under a mesh each rank attends over its own batch rows and heads.
+    out = map_heads(dense, q, k, v) if is_dtensor(q) else dense(q, k, v)
     return out @ p.wo.to(cdt)
 
 
@@ -238,11 +267,22 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     L = cache.k.shape[1]
     pos = pos.long()
     slot = pos if cfg.sliding_window is None else pos % L     # (B,)
+    if is_dtensor(cache.k):
+        out = _decode_sharded(cfg, q, k_new, v_new, pos, slot, cache)
+        return out @ p.wo.to(cfg.compute_dtype), cache
     rows = torch.arange(B, device=x.device)
     cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
     cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
-    scores = _gqa_scores(q, cache.k, cfg).float()           # (B,KV,G,1,L)
-    kpos = torch.arange(L, device=x.device)[None, :]        # (1, L)
+    out = _decode_attend(cfg, q, pos, cache.k, cache.v)
+    return out @ p.wo.to(cfg.compute_dtype), cache
+
+
+def _decode_attend(cfg: ModelConfig, q, pos, k, v) -> torch.Tensor:
+    """The decode step's attention of q (B, 1, H, hd) over a whole cache
+    k, v (B, L, KV, hd): (B, 1, H*hd)."""
+    L = k.shape[1]
+    scores = _gqa_scores(q, k, cfg).float()                 # (B,KV,G,1,L)
+    kpos = torch.arange(L, device=q.device)[None, :]        # (1, L)
     posb = pos[:, None]                                     # (B, 1)
     if cfg.sliding_window is None:
         ok = kpos <= posb
@@ -254,8 +294,65 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
     scores = scores + mask[:, None, None, None, :]
     w = torch.softmax(scores, dim=-1).to(cfg.compute_dtype)
-    out = _gqa_out(w, cache.v)
-    return out @ p.wo.to(cfg.compute_dtype), cache
+    return _gqa_out(w, v)
+
+
+def _decode_sharded(cfg: ModelConfig, q, k_new, v_new, pos, slot,
+                    cache: KVCache):
+    """``attention_decode``'s write and attention on a laid-out cache
+    (``launch.sharding.cache_specs``: batch over the dp axes, the key
+    sequence over `model`, or over every axis when the batch cannot
+    split), on each rank's local block.  The new key lands on the rank
+    that holds its slot (a select, in place); each rank takes the softmax
+    of its keys and their statistics, and the maximum, the normalizer and
+    the weighted values are reduced over the sequence's mesh axes (the
+    reference leaves the same reductions to GSPMD).  Returns (B, 1, H*hd)
+    laid out as the cache's batch."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    mesh = cache.k.device_mesh
+    pl = [p if p.is_shard(0) else Replicate() for p in cache.k.placements]
+    seq_dims = [i for i, p in enumerate(cache.k.placements) if p.is_shard(1)]
+    q, k_new, v_new, pos, slot = (
+        as_dtensor(t, mesh).redistribute(mesh, pl).to_local()
+        for t in (q, k_new, v_new, pos, slot))
+    ck, cv = cache.k.to_local(), cache.v.to_local()
+    L, Ll = cache.k.shape[1], ck.shape[1]
+    B = cache.k.shape[0]
+    W = cfg.n_heads * cfg.hd
+    chunk = 0
+    coord = mesh.get_coordinate()
+    for i in seq_dims:                       # major to minor, as DTensor
+        chunk = chunk * mesh.size(i) + coord[i]
+    kpos = chunk * Ll + torch.arange(Ll, device=ck.device)    # global slots
+    hit = (kpos[None, :] == slot[:, None])[:, :, None, None]
+    ck.copy_(torch.where(hit, k_new.to(ck.dtype), ck))
+    cv.copy_(torch.where(hit, v_new.to(cv.dtype), cv))
+    scores = _gqa_scores(q, ck, cfg).float()                  # (b,KV,G,1,Ll)
+    posb = pos[:, None]
+    if cfg.sliding_window is None:
+        ok = kpos[None, :] <= posb
+    else:
+        ok = torch.remainder(posb - kpos[None, :], L) <= posb
+    scores = scores + torch.where(ok, 0.0, NEG_INF).to(torch.float32)[
+        :, None, None, None, :]
+
+    def reduce(t, op):
+        for i in seq_dims:
+            if mesh.size(i) > 1:
+                t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    # Each rank's softmax over its keys (torch's own arithmetic), scaled
+    # by its share of the whole normalizer, l_r exp(m_r - m) / sum: where
+    # the sequence is whole the share is l / l, exactly 1, so the weights
+    # are ``_decode_attend``'s bits.
+    m_r = scores.amax(-1, keepdim=True)
+    l_r = torch.exp(scores - m_r).sum(-1, keepdim=True)
+    c = l_r * torch.exp(m_r - reduce(m_r, "max"))
+    w = torch.softmax(scores, dim=-1) * (c / reduce(c, "sum"))
+    out = reduce(_gqa_out(w.to(cfg.compute_dtype), cv), "sum")
+    return wrap(out, mesh, pl, (B, 1, W))
 
 
 def attention_extend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -298,12 +395,17 @@ def cross_attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     k, v = enc_kv
     h, hd = cfg.n_heads, cfg.hd
     cdt = cfg.compute_dtype
-    q = (x @ p.wq.to(cdt)).reshape(x.shape[0], x.shape[1], h, hd)
+    q = split_evenly(x @ p.wq.to(cdt), -1, h).reshape(
+        x.shape[0], x.shape[1], h, hd)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
-    scores = _gqa_scores(q, k, cfg).float()
-    w = torch.softmax(scores, dim=-1).to(cdt)
-    out = _gqa_out(w, v)
+
+    def dense(q, k, v):
+        scores = _gqa_scores(q, k, cfg).float()
+        w = torch.softmax(scores, dim=-1).to(cdt)
+        return _gqa_out(w, v)
+
+    out = map_heads(dense, q, k, v) if is_dtensor(q) else dense(q, k, v)
     return out @ p.wo.to(cdt)
 
 
@@ -314,8 +416,8 @@ def encoder_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor
     kv, hd = cfg.n_kv_heads, cfg.hd
     cdt = cfg.compute_dtype
     B = enc_out.shape[0]
-    k = (enc_out @ p.wk.to(cdt)).reshape(B, -1, kv, hd)
-    v = (enc_out @ p.wv.to(cdt)).reshape(B, -1, kv, hd)
+    k = split_evenly(enc_out @ p.wk.to(cdt), -1, kv).reshape(B, -1, kv, hd)
+    v = split_evenly(enc_out @ p.wv.to(cdt), -1, kv).reshape(B, -1, kv, hd)
     if cfg.qk_norm:
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
     return k, v

@@ -44,6 +44,7 @@ from torch.profiler import record_function
 
 from .config import ModelConfig
 from .mlp import _normal_, _param
+from .pshard import hint
 
 __all__ = ["MambaState", "Mamba", "mamba_init", "mamba_forward",
            "mamba_prefill", "mamba_init_state", "mamba_decode",
@@ -190,16 +191,23 @@ def _mamba_scan(p: Mamba, cfg: ModelConfig, x: torch.Tensor, chunk: int):
     xc = F.silu(_causal_conv(x1, p.conv_w.to(cdt), p.conv_b.to(cdt)))
     dt, A, Bc, Cc = _ssm_terms(p, cfg, xc)
 
-    h = torch.zeros((B, cfg.d_inner, cfg.mamba_d_state),
-                    dtype=torch.float32, device=x.device)
+    # Under a mesh dI shards over `model`; the dS state dim stays local (it
+    # contracts in the y einsum: sharding it would reduce every chunk).
+    # Without one the hints do nothing.
+    h = hint(torch.zeros((B, cfg.d_inner, cfg.mamba_d_state),
+                         dtype=torch.float32, device=x.device),
+             "dp", "model", None)
     ys = []
     with record_function("mamba.scan"):
         for s0 in range(0, S, Q):
             sl = slice(s0, s0 + Q)
             Abar, Bx = _discretize(dt[:, sl], A, Bc[:, sl], xc[:, sl])
+            Abar = hint(Abar, "dp", None, "model", None)
+            Bx = hint(Bx, "dp", None, "model", None)
             Pt, St = _scan_chunk(Abar, Bx)                 # (B, Q, dI, dS)
             hs = Pt * h[:, None] + St
-            ys.append(torch.einsum("bqds,bqs->bqd", hs, Cc[:, sl]))
+            ys.append(torch.einsum("bqds,bqs->bqd", hs,
+                                   hint(Cc[:, sl], "dp", None, None)))
             h = hs[:, -1]
         y = torch.cat(ys, dim=1)
     y = (y + p.D * xc.float()).to(cdt)

@@ -39,6 +39,9 @@ Public surface:
                                        recurrent layer, and under encdec
                                        the encoder's cross K/V per layer
   init_caches, supports_chunked_prefill
+  params_shape / caches_shape       -- the model and the caches on the
+                                       ``meta`` device: the dry-run's
+                                       stand-ins, allocating nothing
   layer_signature, pattern_period, pattern, n_superblocks
   params_from_jax / params_to_numpy -- the reference's tree <-> the module
 
@@ -54,6 +57,7 @@ recomputed in the backward under ``cfg.remat`` (the reference's
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -73,6 +77,8 @@ from .mamba import Mamba
 from .mlp import GeluMLP, SwiGLU, mlp
 from .moe import MoE, MoEAux, moe_ffn
 from .norms import LayerNorm, RMSNorm, layernorm, rmsnorm
+from .pshard import (as_dtensor, compute_params, hint, is_dtensor, pad_dim,
+                     wrap)
 from .rope import (mrope_cos_sin, rope_cos_sin, text_mrope_positions,
                    text_positions)
 from .xlstm import MLSTM as MLSTMMixer
@@ -82,8 +88,9 @@ __all__ = ["Block", "Transformer", "MoEAux", "init_params", "forward",
            "loss_fn", "MOE_AUX_COEF", "Z_LOSS_COEF",
            "embed_tokens", "lm_logits", "init_caches", "prefill",
            "supports_chunked_prefill", "prefill_chunk", "decode_step",
-           "params_from_jax", "params_to_numpy",
-           "layer_signature", "pattern_period", "pattern", "n_superblocks"]
+           "params_from_jax", "params_to_numpy", "params_shape",
+           "caches_shape", "layer_signature", "pattern_period", "pattern",
+           "n_superblocks"]
 
 
 MOE_AUX_COEF = 0.01
@@ -242,6 +249,12 @@ def init_params(gen_or_seed, cfg: ModelConfig, *,
     return model
 
 
+def params_shape(cfg: ModelConfig) -> Transformer:
+    """The model on the ``meta`` device: every parameter's shape and dtype,
+    nothing allocated (the reference's ``jax.eval_shape`` stand-in)."""
+    return Transformer(cfg, device="meta")
+
+
 # ---------------------------------------------------------------- forward
 
 def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
@@ -264,7 +277,26 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(params: Transformer, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(params.embed.tok):
+        return _embed_sharded(params.embed.tok, tokens).to(cfg.compute_dtype)
     return params.embed.tok[tokens.long()].to(cfg.compute_dtype)
+
+
+def _embed_sharded(tok, tokens):
+    """The lookup under a mesh, on each rank's own tokens (batch over dp)
+    against the whole table, the same gather as without one; the table's
+    gradient is a partial sum over the axes that split the batch.
+    DTensor's own index backward fails on a laid-out table."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = tok.device_mesh
+    tokens = as_dtensor(hint(tokens, "dp", None), mesh)
+    pl = [q if q.is_shard(0) else Replicate() for q in tokens.placements]
+    tokens = tokens.redistribute(mesh, pl)
+    table = tok.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if q.is_shard(0) else Replicate()
+                         for q in pl])
+    out = table[tokens.to_local().long()]
+    return wrap(out, mesh, pl, tuple(tokens.shape) + (tok.shape[1],))
 
 
 def lm_logits(params: Transformer, cfg: ModelConfig,
@@ -301,14 +333,16 @@ def _sublayers(cfg: ModelConfig, bp: Block, x, enc_out, group_size=None):
 
 
 def _block_forward(cfg: ModelConfig, bp: Block, x, cos, sin, enc_out=None):
-    x = x + _mixer_forward(cfg, bp, _norm(cfg, bp.ln1, x), cos, sin)
-    return _sublayers(cfg, bp, x, enc_out)
+    with compute_params(bp):
+        x = x + _mixer_forward(cfg, bp, _norm(cfg, bp.ln1, x), cos, sin)
+        return _sublayers(cfg, bp, x, enc_out)
 
 
 def _enc_block(cfg: ModelConfig, bp: Block, x):
-    x = x + attn_mod.attention(bp.mixer, cfg, _norm(cfg, bp.ln1, x), None,
-                               None, causal=False)
-    return _sublayers(cfg, bp, x, None)[0]
+    with compute_params(bp):
+        x = x + attn_mod.attention(bp.mixer, cfg, _norm(cfg, bp.ln1, x),
+                                   None, None, causal=False)
+        return _sublayers(cfg, bp, x, None)[0]
 
 
 def _encode(params: Transformer, cfg: ModelConfig, frames: torch.Tensor,
@@ -326,6 +360,18 @@ def _encode(params: Transformer, cfg: ModelConfig, frames: torch.Tensor,
     return _norm(cfg, params.enc_norm, x)
 
 
+def _top_params(fn):
+    """``fn(params, cfg, ...)`` with the model's own parameters (those
+    outside its blocks) gathered for compute under a mesh
+    (``pshard.compute_params``); the blocks gather theirs one at a time."""
+    @functools.wraps(fn)
+    def wrapped(params, cfg, *args, **kwargs):
+        with compute_params(params, skip=("blocks", "enc_blocks")):
+            return fn(params, cfg, *args, **kwargs)
+    return wrapped
+
+
+@_top_params
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
@@ -353,7 +399,13 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
     enc_out = _encode(params, cfg, frames, remat) if cfg.encdec else None
     lb = dr = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
-    for bp in params.blocks:
+    p = pattern_period(cfg)
+    for i, bp in enumerate(params.blocks):
+        if i % p == 0:
+            # Under a mesh, pin the residual stream (batch over dp) at each
+            # superblock's boundary, the reference's remat boundary; no
+            # mesh, nothing.
+            x = hint(x, "dp", None, None)
         if remat:
             x, aux = checkpoint(_block_forward, cfg, bp, x, cos, sin,
                                 enc_out, use_reentrant=False)
@@ -362,6 +414,7 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
         if aux is not None:
             lb, dr = lb + aux.load_balance_loss, dr + aux.dropped_fraction
             n_moe += 1
+    x = hint(x, "dp", None, None)
     x = _norm(cfg, params.final_norm, x)
     n_moe = max(1, n_moe)
     return lm_logits(params, cfg, x), MoEAux(lb / n_moe, dr / n_moe)
@@ -380,12 +433,12 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
                           frames=batch.get("frames"),
                           patches=batch.get("patches"))
     labels = batch["labels"]
-    # The gold logits are a gather of one entry a row, so its backward adds
-    # once into each place it writes: no two adds meet.
     mask = (labels >= 0).float()
     lab = labels.clamp_min(0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if is_dtensor(logits):
+        lse, gold = _vocab_parallel_terms(logits, lab)
+    else:
+        lse, gold = _ce_terms(logits, lab)
     ce = (lse - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     ce_loss = ce.sum() / denom
@@ -395,6 +448,74 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict
                "moe_lb": aux.load_balance_loss,
                "moe_drop": aux.dropped_fraction, "total_loss": total}
     return total, metrics
+
+
+def _ce_terms(logits, lab):
+    """(logsumexp, gold logit) of each row.  The gold logits are a gather
+    of one entry a row, so its backward adds once into each place it
+    writes: no two adds meet."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    return lse, gold
+
+
+class _SplitLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of a rank's block of logits
+    whose last dim is split over the mesh dims ``axes``: the row maximum
+    and the sum of exponentials are reduced over them (small (B, S)
+    all-reduces).  Forward and backward are ``logsumexp``'s own arithmetic
+    (``log(sum(exp(x - max))) + max``; ``g * exp(x - lse)``), so with no
+    axis the bits are its bits, and so are the gradients an optimizer
+    step amplifies."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        import torch.distributed._functional_collectives as funcol
+        m = x.amax(-1, keepdim=True)
+        for i in axes:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        s = torch.exp(x - m).sum(-1)
+        for i in axes:
+            s = funcol.all_reduce(s, "sum", (mesh, i))
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None]), None, None
+
+
+def _vocab_parallel_terms(logits, lab):
+    """(logsumexp, gold logit) of DTensor logits, on every layout, without
+    gathering a vocab dim split over `model`: the logsumexp on each rank's
+    block (``_SplitLogSumExp``), and the gold logit a select of each
+    rank's block against its own vocab ids, laid out as the logits are,
+    summed over the split.  The same values as ``_ce_terms``.  Both are
+    built on local blocks: DTensor's own gather along a split dim
+    mis-reduces 3-D operands, and torch 2.11's strategy for ``lab == ids``
+    replicates the vocab (a (B, S, V) select a device)."""
+    from torch.distributed.tensor import Replicate
+    mesh, d = logits.device_mesh, logits.dim() - 1
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(mesh, [
+            Replicate() if p.is_partial() else p for p in logits.placements])
+    pl = logits.placements
+    split = [i for i, p in enumerate(pl) if p.is_shard(d)]
+    rows = [Replicate() if p.is_shard(d) else p for p in pl]
+    x = logits.to_local()
+    lse = wrap(_SplitLogSumExp.apply(
+        x, mesh, [i for i in split if mesh.size(i) > 1]), mesh, rows,
+        logits.shape[:-1])
+    chunk, coord = 0, mesh.get_coordinate()
+    for i in split:                          # major to minor, as DTensor
+        chunk = chunk * mesh.size(i) + coord[i]
+    ids = chunk * x.shape[-1] + torch.arange(x.shape[-1], device=x.device)
+    lab = as_dtensor(lab, mesh).redistribute(mesh, rows).to_local()
+    hit = wrap(lab[..., None] == ids, mesh, pl, logits.shape)
+    gold = hint(torch.where(hit, logits, 0.0).sum(-1), "dp", None)
+    return lse, gold
 
 
 # ----------------------------------------------------------------- caches
@@ -428,6 +549,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def caches_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """``init_caches``' tree on the ``meta`` device (shapes and dtypes)."""
+    return init_caches(cfg, batch, max_len, device="meta")
+
+
 # ---------------------------------------------------------------- prefill
 
 def _attn_prefill_cache(cfg: ModelConfig, bp: Block, h, cos, sin,
@@ -438,6 +564,8 @@ def _attn_prefill_cache(cfg: ModelConfig, bp: Block, h, cos, sin,
     if cos is not None:
         k = attn_mod.apply_rope(k, cos, sin)
     S = h.shape[1]
+    if is_dtensor(k):
+        return out, _kv_cache_of(cfg, k, v, S, max_len)
     cache = attn_mod.init_kv_cache(cfg, h.shape[0], max_len, h.device)
     L = cache.k.shape[1]
     if cfg.sliding_window is not None and S > L:
@@ -453,6 +581,25 @@ def _attn_prefill_cache(cfg: ModelConfig, bp: Block, h, cos, sin,
     return out, cache
 
 
+def _kv_cache_of(cfg: ModelConfig, k, v, S: int, max_len: int) -> KVCache:
+    """The prefill's cache built from DTensor keys without writing into a
+    buffer (DTensor takes no slice assignment): the prompt's keys padded
+    to the cache's length, or under a sliding window the last L keys in
+    their ring slots ``pos % L``; the same values as the in-place path."""
+    L = (min(max_len, cfg.sliding_window) if cfg.sliding_window is not None
+         else max_len)
+    cdt = cfg.compute_dtype
+    if cfg.sliding_window is not None and S > L:
+        idx = (torch.arange(L, device=k.device) - (S - L)) % L
+        return KVCache(k=k[:, -L:][:, idx].to(cdt),
+                       v=v[:, -L:][:, idx].to(cdt))
+    if S > L:
+        raise ValueError(f"prompt of {S} tokens does not fit the cache "
+                         f"of max_len={L}")
+    return KVCache(k=pad_dim(k.to(cdt), 1, L - S),
+                   v=pad_dim(v.to(cdt), 1, L - S))
+
+
 def _mixer_prefill(cfg: ModelConfig, bp: Block, h, cos, sin, max_len):
     if type(bp.mixer) in _RECURRENT:
         return _RECURRENT[type(bp.mixer)][1](bp.mixer, cfg, h)
@@ -460,6 +607,7 @@ def _mixer_prefill(cfg: ModelConfig, bp: Block, h, cos, sin, max_len):
 
 
 @torch.inference_mode()
+@_top_params
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: int, frames: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None):
@@ -475,12 +623,13 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
     enc_out = _encode(params, cfg, frames) if cfg.encdec else None
     caches, cross = [], []
     for bp in params.blocks:
-        h, cache = _mixer_prefill(cfg, bp, _norm(cfg, bp.ln1, x), cos, sin,
-                                  max_len)
-        x, _ = _sublayers(cfg, bp, x + h, enc_out)
-        caches.append(cache)
-        if enc_out is not None:
-            cross.append(attn_mod.encoder_kv(bp.cross, cfg, enc_out))
+        with compute_params(bp):
+            h, cache = _mixer_prefill(cfg, bp, _norm(cfg, bp.ln1, x), cos,
+                                      sin, max_len)
+            x, _ = _sublayers(cfg, bp, x + h, enc_out)
+            caches.append(cache)
+            if enc_out is not None:
+                cross.append(attn_mod.encoder_kv(bp.cross, cfg, enc_out))
     x_last = _norm(cfg, params.final_norm, x[:, -1:])
     out = {"self": caches}
     if cfg.encdec:
@@ -536,6 +685,7 @@ def _mixer_decode(cfg: ModelConfig, bp: Block, h, pos, cache, cos, sin):
 
 
 @torch.inference_mode()
+@_top_params
 def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                 pos, caches: dict):
     """One token for every sequence in the batch.
@@ -553,15 +703,16 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     cos, sin = _rope_tables(cfg, p[None].expand(3, B, 1) if cfg.mrope else p)
     cross = caches.get("cross")
     for i, (bp, cache) in enumerate(zip(params.blocks, caches["self"])):
-        x = x + _mixer_decode(cfg, bp, _norm(cfg, bp.ln1, x), pos, cache,
-                              cos, sin)
-        if cross is not None and hasattr(bp, "cross"):
-            h = _norm(cfg, bp.ln_x, x)
-            x = x + attn_mod.cross_attention_decode(bp.cross, cfg, h,
-                                                    cross[i])
-        if bp.ffn is not None:
-            # The whole batch is one dispatch group (the reference's).
-            x = x + _ffn(cfg, bp, x, group_size=B)[0]
+        with compute_params(bp):
+            x = x + _mixer_decode(cfg, bp, _norm(cfg, bp.ln1, x), pos,
+                                  cache, cos, sin)
+            if cross is not None and hasattr(bp, "cross"):
+                h = _norm(cfg, bp.ln_x, x)
+                x = x + attn_mod.cross_attention_decode(bp.cross, cfg, h,
+                                                        cross[i])
+            if bp.ffn is not None:
+                # The whole batch is one dispatch group (the reference's).
+                x = x + _ffn(cfg, bp, x, group_size=B)[0]
     x = _norm(cfg, params.final_norm, x)
     return lm_logits(params, cfg, x), caches
 

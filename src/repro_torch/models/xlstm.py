@@ -46,6 +46,7 @@ from torch.profiler import record_function
 from .config import ModelConfig
 from .mamba import _causal_conv
 from .mlp import _normal_, _param
+from .pshard import contiguous_grad, hint, is_dtensor
 
 __all__ = ["MLSTMState", "SLSTMState", "MLSTM", "SLSTM", "mlstm_init",
            "slstm_init", "mlstm_forward", "mlstm_prefill",
@@ -143,15 +144,22 @@ def _mlstm_qkvif(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     xc = F.silu(_causal_conv(xm, p.conv_w.to(cdt), p.conv_b.to(cdt),
                              history=conv_hist))
 
+    # (contiguous_grad: under a mesh, the transposes' gradients made
+    # contiguous for the views of the products' backward; else nothing)
     def tohead(t):
-        return t.reshape(t.shape[0], t.shape[1], nh, hd).transpose(1, 2)
+        t = t.reshape(t.shape[0], t.shape[1], nh, hd)
+        return contiguous_grad(t).transpose(1, 2)
 
     q = tohead(xc @ p.cq.to(cdt))
     k = tohead(xc @ p.ck.to(cdt)) * (hd ** -0.5)
     v = tohead(xm @ p.cv.to(cdt))
     xf = xc.float()
-    ig = (xf @ p.w_igate + p.b_igate).transpose(1, 2)           # (B,nh,S)
-    fg = F.logsigmoid(xf @ p.w_fgate + p.b_fgate).transpose(1, 2)
+    ig = contiguous_grad(xf @ p.w_igate + p.b_igate).transpose(1, 2)
+    fz = xf @ p.w_fgate + p.b_fgate
+    # log sigmoid; a DTensor has no rule for its backward, so there the
+    # same function as -softplus(-z)
+    fg = contiguous_grad(-F.softplus(-fz) if is_dtensor(fz)
+                         else F.logsigmoid(fz)).transpose(1, 2)
     return q, k, v, ig, fg, xm, z, xc
 
 
@@ -194,9 +202,12 @@ def _mlstm_scan(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, chunk: int):
     q, k, v, ig, fg, xm, z, _ = _mlstm_qkvif(p, cfg, x)
     qf, kf, vf = q.float(), k.float(), v.float()
     dev = x.device
-    C = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=dev)
-    n = torch.zeros((B, nh, hd), dtype=torch.float32, device=dev)
-    m = torch.zeros((B, nh), dtype=torch.float32, device=dev)
+    C = hint(torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=dev),
+             "dp", None, "model", None)
+    n = hint(torch.zeros((B, nh, hd), dtype=torch.float32, device=dev),
+             "dp", None, "model")
+    m = hint(torch.zeros((B, nh), dtype=torch.float32, device=dev),
+             "dp", None)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.float32, device=dev))
     hs = []
     with record_function("xlstm.mlstm"):

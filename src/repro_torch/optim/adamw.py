@@ -26,7 +26,7 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: dict) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = next(iter(params.values())).device
     return AdamWState(mu={k: zeros(p) for k, p in params.items()},
                       nu={k: zeros(p) for k, p in params.items()},

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.rng import block_seed
+from ..kernels.common import is_dtensor
 
 __all__ = ["CompressorConfig", "ef_init", "compress_grads"]
 
@@ -118,6 +119,22 @@ def compress_grads(seed: int, grads_per_pod: dict, ef_state: dict,
     dense_bytes = comp_bytes = 0
     for name, g in grads_per_pod.items():
         e = ef_state[name]
+        if is_dtensor(g):
+            gl = torch.empty(g.shape[1:], dtype=g.dtype, device="meta")
+            if not _is_compressible(gl, cfg):
+                out[name] = _pod_mean_sharded(g)
+                new_ef[name] = e
+                continue
+            m, n = gl.shape[-2], gl.shape[-1]
+            r = min(cfg.rank, m, n)
+            omega = _omega(seed, index[_LAYER.sub("blocks.", name)], r, n,
+                           g.to_local().device)
+            out[name], ef_new = _compress_sharded(g, e, omega, r)
+            new_ef[name] = ef_new if cfg.error_feedback else e
+            L = math.prod(gl.shape[:-2]) if gl.dim() > 2 else 1
+            dense_bytes += L * m * n * 4
+            comp_bytes += L * (m + n) * r * 4
+            continue
         gl = g[0]
         if not _is_compressible(gl, cfg):
             out[name] = g.mean(0)
@@ -141,3 +158,88 @@ def compress_grads(seed: int, grads_per_pod: dict, ef_state: dict,
     stats = {"dense_bytes": dense_bytes, "compressed_bytes": comp_bytes,
              "ratio": comp_bytes / max(1, dense_bytes)}
     return out, new_ef, stats
+
+
+# ------------------------------------------------------------ on a mesh
+
+def _sharded_dims(g) -> dict:
+    """{tensor dim: [mesh dims splitting it]} of a DTensor."""
+    out: dict = {}
+    for i, p in enumerate(g.placements):
+        if p.is_shard():
+            out.setdefault(p.dim, []).append(i)
+    return out
+
+
+def _all_reduce(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    for i in dims:
+        if mesh.size(i) > 1:
+            t = funcol.all_reduce(t, "sum", (mesh, i))
+    return t
+
+
+def _unpodded(g, local: torch.Tensor):
+    """``local`` (one pod's block of ``g[p]``) as a DTensor of ``g``'s
+    trailing dims, replicated over the pod axis."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [Replicate() if p.is_shard(0) else
+          (Shard(p.dim - 1) if p.is_shard() else p) for p in g.placements]
+    shape = torch.Size(g.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, g.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _pod_mean_sharded(g):
+    """``g.mean(0)`` of a pod-stacked DTensor (its dim 0 split over the pod
+    axis, one pod a rank): the sum over the pod axis, over its size."""
+    dims = _sharded_dims(g)
+    pods = dims.get(0, [])
+    npods = g.shape[0]
+    return _unpodded(g, _all_reduce(g.to_local()[0], g.device_mesh, pods)
+                     / npods)
+
+
+def _compress_sharded(g, e, omega: torch.Tensor, r: int):
+    """``_block_compress`` over every (m, n) block of a pod-stacked DTensor
+    ``g`` (npods, ..., m, n), the pod dim split over the pod axis and the
+    rest laid out as the parameter, on each rank's local block with the
+    reductions made explicit: W's product over n and mean over pods are
+    sums over the mesh axes splitting n and over the pod axis; the basis
+    is taken from the whole W (summed into place over the axes splitting
+    m); P's product over m and mean over pods likewise.  Returns (g_hat
+    laid out as the parameter, the new EF buffer laid out as ``g``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = g.device_mesh
+    dims = _sharded_dims(g)
+    nd = g.dim()
+    pods = dims.get(0, [])
+    m_dims, n_dims = dims.get(nd - 2, []), dims.get(nd - 1, [])
+    npods = g.shape[0]
+    m = g.shape[-2]
+    _, off = compute_local_shape_and_global_offset(g.shape, mesh,
+                                                   g.placements)
+    gl = g.to_local()[0].float()                      # (..., m_l, n_l)
+    el = e.to_local()[0] if is_dtensor(e) else e
+    gf = gl + el
+    ml, nl = gf.shape[-2], gf.shape[-1]
+    m0, n0 = off[-2], off[-1]
+    om = omega[:, n0:n0 + nl]                         # (r, n_l)
+    lead = gf.shape[:-2]
+    gfe = gf.reshape((-1, ml, nl))
+    ghs = []
+    for blk in gfe:
+        W = _all_reduce(blk @ om.T, mesh, n_dims + pods) / npods
+        Wf = torch.zeros((m, r), dtype=W.dtype, device=W.device)
+        Wf[m0:m0 + ml] = W
+        Q = _ridged_orth(_all_reduce(Wf, mesh, m_dims))[m0:m0 + ml]
+        P = _all_reduce(Q.T @ blk, mesh, m_dims + pods) / npods
+        ghs.append(Q @ P)
+    g_hat = torch.stack(ghs).reshape(lead + (ml, nl))
+    new_e = (gf - g_hat)[None]
+    return (_unpodded(g, g_hat.to(g.dtype)),
+            DTensor.from_local(new_e, mesh, g.placements, run_check=False,
+                               shape=g.shape, stride=g.stride()))

@@ -47,6 +47,14 @@ def run_ranks(program: str, world: int, *args: str, timeout: int,
     ``(returncode, stdout, stderr)`` per rank; a rank still running after
     ``timeout`` seconds is killed with every other rank, and its return
     code is ``None``."""
+    return start_ranks(program, world, *args, timeout=timeout, **env)()
+
+
+def start_ranks(program: str, world: int, *args: str, timeout: int,
+                **env: str):
+    """``run_ranks`` without waiting: starts the ranks and returns a
+    function that waits for them and gives ``run_ranks``' result (the
+    caller can work meanwhile; ``timeout`` counts from the wait)."""
     full_env = dict(os.environ, **env)
     full_env["PYTHONPATH"] = (str(SRC) + os.pathsep
                               + os.environ.get("PYTHONPATH", ""))
@@ -54,17 +62,21 @@ def run_ranks(program: str, world: int, *args: str, timeout: int,
                                str(world), *args], env=full_env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for rank in range(world)]
-    results = []
-    for p in procs:
-        try:
-            out, err = p.communicate(timeout=timeout)
-            results.append((p.returncode, out, err))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            out, err = p.communicate()
-            results.append((None, out, err + f"\ntimed out after {timeout} s"))
-    return results
+
+    def wait() -> list:
+        results = []
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+                results.append((p.returncode, out, err))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out, err = p.communicate()
+                results.append((None, out,
+                                err + f"\ntimed out after {timeout} s"))
+        return results
+    return wait
 
 
 def failures(results: list) -> str:
