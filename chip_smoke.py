@@ -252,6 +252,18 @@ in order, printing one JSON line per phase:
                  torch's fake backend (a CPU process a cell, after (a) and
                  (b)): each ``ok``, its per-device peak beside the H100's
                  80 GB, its collective bytes by kind.
+  12. scaling -- the paper's Figures 1-2 through
+                 ``benchmarks.bench_scaling``: (a) PAPER_GRID rows 0 and 6,
+                 blocked and panel_parallel, one rank's work at 4..128
+                 ranks counted on torch's fake backend (CPU subprocesses,
+                 after (b) and (c): no wall is taken beside them),
+                 speedup and efficiency on the H100's published constants
+                 (a model, not a multi-card run); (b) SMALL_GRID row 1 and
+                 the main row executed on the one-rank NCCL group (4
+                 calls), measured over modeled seconds, the main row's
+                 launches against phases main and distributed; (c)
+                 ``examples/torch/quickstart.py`` on the card, held to the
+                 eq. (3) bound it prints.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -293,6 +305,9 @@ MAIN, DEFAULT = PAPER_GRID[2], PAPER_GRID[0]
 MAIN_K, MAIN_M, MAIN_N = MAIN.k, MAIN.m, MAIN.n
 DEFAULT_K, DEFAULT_M, DEFAULT_N = DEFAULT.k, DEFAULT.m, DEFAULT.n
 PANEL = 32
+# Phase scaling: the rank counts of Figures 1-2 and the engines modeled.
+SCALING_PROCS = "4,8,16,32,64,128"
+SCALING_IMPLS = ("blocked", "panel_parallel")
 # c128 sketch_accum and sketch_matmul run at a quarter of the main path's
 # m, so that phase 2 stays within a few seconds (4x the flops of f64 per
 # element); c128 fwht at a quarter of n, so that its plain version (a new
@@ -2686,7 +2701,9 @@ def main() -> int:
         belongs to the range whose span holds it) and its share of busy
         time; the rest is busy time outside them all.  It reads the raw
         Kineto events: parsing them into ``prof.events()`` takes tens of
-        seconds at the 10^5 launches of an sLSTM prefill."""
+        seconds at the 10^5 launches of an sLSTM prefill.  Each range also
+        has its host spans (``calls``) and how many of them issued a kernel
+        launch (``calls_with_launches``)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -2706,6 +2723,12 @@ def main() -> int:
                "flash_ms": sum(ms for name, _, ms in kern
                                if "flash_fwd_kernel" in name)}
         inside = out["flash_ms"]
+        # Kernel launches on the host timeline (the runtime calls inside a
+        # range's host span), which the program issues whatever the device
+        # trace keeps.
+        host_launches = [e.start_ns() for e in evs
+                         if e.device_type() == DeviceType.CPU
+                         and "LaunchKernel" in e.name()]
         for rname in ranges:
             spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
                      for e in on_dev
@@ -2713,9 +2736,14 @@ def main() -> int:
             ks = [ms for _, t, ms in kern
                   if any(lo <= t < hi for lo, hi in spans)]
             inside += sum(ks)
+            host = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in evs if e.name() == rname
+                    and e.device_type() == DeviceType.CPU]
             out[rname] = {"ms": sum(ks), "launches": len(ks),
-                          "calls": sum(1 for e in evs if e.name() == rname
-                                       and e.device_type() == DeviceType.CPU),
+                          "calls": len(host),
+                          "calls_with_launches": sum(
+                              1 for lo, hi in host
+                              if any(lo <= t < hi for t in host_launches)),
                           "device_spans": len(spans),
                           "share_of_busy": sum(ks) / busy}
         out["rest_ms"] = busy - inside
@@ -2821,10 +2849,21 @@ def main() -> int:
     check(len(long_prefill) == 1, "hybrid (a): no prefill span of the long "
           "prompt")
     check(finite, "hybrid (a): logits not finite")
-    n_scans = {key: tr["mamba.scan"]["device_spans"] for key, tr in (
-        ("prefill", prefill_trace), ("decode", decode_trace))}
-    check(set(n_scans.values()) == {cfg.n_layers - n_attn},
-          f"hybrid (a): Mamba scans on the device {n_scans}")
+    # The gate reads what the program decides: one host-side mamba.scan
+    # range a Mamba layer, each issuing kernel launches.  The ranges' spans
+    # on the device timeline are printed beside it: the profiler has
+    # dropped one of the seven there in a run while the host saw all.
+    n_mamba = cfg.n_layers - n_attn
+    scans = {key: {k: tr["mamba.scan"][k] for k in
+                   ("calls", "calls_with_launches", "device_spans")}
+             for key, tr in (("prefill", prefill_trace),
+                             ("decode", decode_trace))}
+    emit({"phase": "hybrid", "part": "a", "mamba_layers": n_mamba,
+          "mamba_scan_ranges": scans})
+    check(all(sc["calls"] == sc["calls_with_launches"] == n_mamba
+              for sc in scans.values()),
+          f"hybrid (a): Mamba scan ranges {scans}, expected {n_mamba} a "
+          f"call, each launching kernels")
     check(prefill_trace["rest_ms"] >= 0 and decode_trace["rest_ms"] >= 0,
           "hybrid (a): the ranges' kernels exceed the busy time")
 
@@ -3018,10 +3057,14 @@ def main() -> int:
           "xlstm (a): no prefill span of the long prompt")
     check(finite, "xlstm (a): logits not finite")
     for key, tr in (("prefill", prefill_trace), ("decode", decode_trace)):
-        spans = {r: tr[r]["device_spans"] for r in xl_ranges}
-        check(spans == {"xlstm.mlstm": kinds.count(MLSTM),
-                        "xlstm.slstm": kinds.count(SLSTM)},
-              f"xlstm (a): {key} ranges on the device {spans}")
+        # One range a layer of each kind: on the host, each issuing
+        # launches, and on the device timeline.
+        spans = {r: (tr[r]["calls"], tr[r]["calls_with_launches"],
+                     tr[r]["device_spans"]) for r in xl_ranges}
+        want = {"xlstm.mlstm": (kinds.count(MLSTM),) * 3,
+                "xlstm.slstm": (kinds.count(SLSTM),) * 3}
+        check(spans == want, f"xlstm (a): {key} ranges (host calls, calls "
+              f"with launches, device spans) {spans}, expected {want}")
         check(tr["rest_ms"] >= 0, f"xlstm (a): {key} ranges exceed busy")
 
     # (b) One mLSTM and one sLSTM layer at full width on XLSTM_LAYER_TOKENS
@@ -3577,6 +3620,14 @@ def main() -> int:
               "bound_over_ms": row["bound_ms"] / row["ms"]})
         return row
 
+    # The five ID kernels' bounds (ops, bytes) are scaling_worker's, which
+    # also counts them on the fake backend: each input read once, each
+    # output written once.
+    from repro_torch.benchmarks.scaling_worker import KERNEL_COSTS
+
+    def kernel_bound(name, *args, **kwargs):
+        return KERNEL_COSTS[name][0](*args, **kwargs)
+
     x, a = randn((l, m), dtype), randn((m, n), dtype)
     acc = torch.zeros((l, n), dtype=dtype, device=dev)
     accum = timed(
@@ -3584,57 +3635,48 @@ def main() -> int:
         "src/repro/kernels/sketch_accum/kernel.py:52",
         main_launches["sketch_accum"], accum_err_f64,
         lambda: sketch_accum(x, a, acc), lambda: sketch_accum_ref(x, a, acc),
-        lambda: torch.addmm(acc, x, a), 2.0 * l * m * n,
-        esize * (l * m + m * n + 2 * l * n), {"l": l, "m": m, "n": n},
-        reps=3, plain_reps=3)
+        lambda: torch.addmm(acc, x, a),
+        *kernel_bound("sketch_accum", x, a, acc),
+        {"l": l, "m": m, "n": n}, reps=3, plain_reps=3)
     del x, a, acc
     torch.cuda.empty_cache()
 
     c, z = randn((l, b), dtype), randn((l, n), dtype)
-    # factor: 2 rounds of Gram (2 l b^2), Cholesky (b^3 / 3), solve (l b^2);
-    # sweep: W and O (2 l b n each), norms (2 l n).  Bytes: C, Z in; Q_p,
-    # O, r2 out.
-    factor_flops = 2 * (3.0 * l * b * b + b ** 3 / 3)
     shape = {"l": l, "b": b, "n": n}
     pstep = timed(
         "panel_step", "src/repro_torch/csrc/panel_step.cu",
         "src/repro/kernels/panel_step/kernel.py:147",
         main_launches["panel_step"], panel_err_f64,
         lambda: panel_step(c, z, emit_w=False), lambda: panel_step_ref(c, z),
-        None, factor_flops + 4.0 * l * b * n + 2.0 * l * n,
-        esize * (2 * l * b + 2 * l * n + n), shape, three_ways=3)
+        None, *kernel_bound("panel_step", c, z), shape, three_ways=3)
     r2in = colnorms2(z)
-    # factor as in panel_step; W (2 l b n) and its norms (2 b n).  Bytes:
-    # c, z, r2 in; Q_p, W, r2 out.
     coeff = timed(
         "panel_coeff", "src/repro_torch/csrc/panel_step.cu",
         "src/repro/kernels/panel_step/kernel.py:202",
         dist_launches["panel_coeff"], split_err_f64["panel_coeff"],
         lambda: panel_coeff(c, z, r2in), lambda: panel_coeff_ref(c, z, r2in),
-        None, factor_flops + 2.0 * l * b * n + 2.0 * b * n,
-        esize * (2 * l * b + l * n + b * n + 2 * n), shape, three_ways=2)
+        None, *kernel_bound("panel_coeff", c, z, r2in), shape, three_ways=2)
     qp, w, _ = panel_coeff(c, z, r2in)
-    # O = Z - Q_p W (2 l b n); bytes: Q_p, W, Z in, O out.
-    apply_flops, apply_bytes = 2.0 * l * b * n, esize * (l * b + b * n + 2 * l * n)
     apply_norms_ms = cuda_ms(lambda: panel_apply(qp, w, z, emit_norms=True), 20)
     apply = timed(
         "panel_apply", "src/repro_torch/csrc/panel_apply.cu",
         "src/repro/kernels/panel_step/kernel.py:257",
         dist_launches["panel_apply"], split_err_f64["panel_apply"],
         lambda: panel_apply(qp, w, z), lambda: panel_apply_ref(qp, w, z),
-        lambda: torch.addmm(z, qp, w, alpha=-1), apply_flops, apply_bytes,
-        shape, emit_norms_ms=apply_norms_ms,
-        emit_norms_bound_ms=1e3 * (apply_bytes + esize * n) / HBM_BYTES_PER_S,
+        lambda: torch.addmm(z, qp, w, alpha=-1),
+        *kernel_bound("panel_apply", qp, w, z), shape,
+        emit_norms_ms=apply_norms_ms,
+        emit_norms_bound_ms=1e3 * kernel_bound(
+            "panel_apply", qp, w, z, emit_norms=True)[1] / HBM_BYTES_PER_S,
         launches_emit_norms=dist_launches["panel_apply(emit_norms)"])
-    # G (2 l b^2) and V (2 l b n); bytes: C, Z in, G, V out.
     z0 = z[:, :0]
     gram = timed(
         "panel_gram", "src/repro_torch/csrc/panel_gram.cu",
         "src/repro/kernels/panel_gram/kernel.py:43",
         gram_launches["panel_gram"], split_err_f64["panel_gram"],
         lambda: panel_gram(c, z), lambda: panel_gram_ref(c, z),
-        lambda: c.mH @ torch.cat([c, z], 1), 2.0 * l * b * n + 2.0 * l * b * b,
-        esize * (l * b + l * n + b * b + b * n), shape,
+        lambda: c.mH @ torch.cat([c, z], 1),
+        *kernel_bound("panel_gram", c, z), shape,
         gram_alone_ms=cuda_ms(lambda: panel_gram(c, z0), 20),
         gram_alone_library_ms=cuda_ms(lambda: c.mH @ c, 20))
     del c, z, z0, qp, w, r2in
@@ -4370,6 +4412,132 @@ def main() -> int:
           f"mesh (c): dry-run exits {dry_exits}, statuses "
           f"{[(r['arch'], r['status'], r.get('error')) for r in records]}; "
           f"output tail {dry_lines[-5:]}")
+
+    # ------------- scaling: the paper's Figures 1-2 (modeled), the rows
+    # executed on the card's one-rank NCCL group, and the quickstart
+    scaling_t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.benchmarks import bench_scaling, scaling_worker
+    from repro_torch.configs import SMALL_GRID
+    procs = [int(p) for p in SCALING_PROCS.split(",")]
+    exec_cases = [(case, impl) for case in (SMALL_GRID[1], MAIN)
+                  for impl in SCALING_IMPLS]
+    # (b) SMALL_GRID row 1 and the main row executed on the card (one
+    # rank, 4 calls), before the counting below starts its CPU
+    # subprocesses, so that no wall is taken beside them; the launches
+    # against the counts phases main and distributed hold for one call.
+    walls, exec_counts = [], []
+    with bench_error.one_rank_group(dev) as g:
+        for case, impl in exec_cases:
+            reset_counts()
+            walls.append(scaling_worker.exec_wall(case.k, case.m, case.n,
+                                                  impl, g, dev))
+            torch.cuda.synchronize()
+            exec_counts.append({k: v for k, v in read_counts().items()
+                                if v})
+            torch.cuda.empty_cache()
+    # (c) examples/torch/quickstart.py at its own size on the card, held
+    # to the eq. (3) bound it prints.
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart", Path(__file__).resolve().parent / "examples"
+        / "torch" / "quickstart.py")
+    quick = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quick)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as qs_out:
+        qs = quick.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    qs_s = time.perf_counter() - t0
+    qs_launches = {k: v for k, v in read_counts().items() if v}
+    # (a) The counting, on torch's fake backend in CPU subprocesses
+    # (nothing allocated), four at a time: PAPER_GRID rows 0 and 6 at
+    # 4..128 ranks for both engines, and (b)'s rows at one rank for their
+    # modeled seconds.
+    with ThreadPoolExecutor(4) as pool:
+        fig_futs = [(impl, PAPER_GRID[i], pool.submit(
+            scaling_worker.sweep, PAPER_GRID[i].k, PAPER_GRID[i].m,
+            PAPER_GRID[i].n, procs, impl))
+            for impl in SCALING_IMPLS for i in (0, 6)]
+        model_futs = [pool.submit(scaling_worker.sweep, case.k, case.m,
+                                  case.n, [1], impl)
+                      for case, impl in exec_cases]
+        figs = {impl: [] for impl in SCALING_IMPLS}
+        for impl, case, fut in fig_futs:
+            recs = dict(zip(procs, fut.result()))
+            figs[impl] += bench_scaling.scaling_rows(
+                case, {p: case.n for p in procs}, recs, procs, weak=False,
+                qr_impl=impl)
+        models = [fut.result()[0] for fut in model_futs]
+    consts = scaling_worker.H100
+    emit({"phase": "scaling", "part": "a",
+          "what": "Figures 1-2: one rank's roofline time at N ranks, a "
+                  "model on published constants (no multi-card run)",
+          "constants": {k: consts[k] for k in (
+              "name", "peak_flops", "hbm_bytes_s", "nvlink_bytes_s",
+              "net_bytes_s", "source")},
+          "card": smi,
+          "rows": [{k: r[k] for k in (
+              "qr_impl", "k", "m", "n", "procs", "model_time_s",
+              "speedup_vs4", "efficiency", "flops_per_dev",
+              "hbm_bytes_per_dev", "coll_bytes_per_dev",
+              "interhost_bytes_per_dev", "bytes_per_dev", "host_reads")}
+              for impl in SCALING_IMPLS for r in figs[impl]]})
+    for impl in SCALING_IMPLS:
+        rows = figs[impl]
+        check(len(rows) == 2 * len(procs) and all(
+            r["model_time_s"] > 0 and math.isfinite(r["speedup_vs4"])
+            and r["bytes_per_dev"] > 0 for r in rows),
+            f"scaling (a): {impl} rows malformed")
+    exec_rows = []
+    for (case, impl), wall, counts, rec in zip(exec_cases, walls,
+                                               exec_counts, models):
+        model = scaling_worker.model_time(rec)
+        exec_rows.append({"qr_impl": impl, "k": case.k, "m": case.m,
+                          "n": case.n, "procs": 1, "calls": 4,
+                          "wall_s": wall, "model_time_s": model,
+                          "wall_over_model": wall / model,
+                          "launches": counts,
+                          "kernel_calls_counted": rec["kernel_calls"]})
+    per_call = {"blocked": {"panel_step": main_launches["panel_step"],
+                            "sketch_accum": main_launches["sketch_accum"]},
+                "panel_parallel": {
+                    k: dist_launches[k] for k in (
+                        "panel_coeff", "panel_apply",
+                        "panel_apply(emit_norms)", "sketch_accum")}}
+    emit({"phase": "scaling", "part": "b", "backend": "nccl", "world": 1,
+          "dtype": "float32", "rows": exec_rows,
+          "main_row_launches_a_call": per_call})
+    for r in exec_rows:
+        check(r["wall_s"] > 0 and r["model_time_s"] > 0,
+              f"scaling (b): {r['qr_impl']} k={r['k']} times {r}")
+        if (r["k"], r["m"], r["n"]) == (MAIN_K, MAIN_M, MAIN_N):
+            want = {k: 4 * v for k, v in per_call[r["qr_impl"]].items()}
+            check(r["launches"] == want,
+                  f"scaling (b): {r['qr_impl']} main row launched "
+                  f"{r['launches']}, expected {want} (4 calls)")
+        else:
+            check(r["launches"].get("sketch_accum") == 4 and all(
+                r["launches"].get(k, 0) > 0 for k in
+                per_call[r["qr_impl"]] if k != "panel_apply(emit_norms)"),
+                f"scaling (b): {r['qr_impl']} small row launched "
+                f"{r['launches']}")
+    emit({"phase": "scaling", "part": "c",
+          "script": "examples/torch/quickstart.py", "seconds": qs_s,
+          "printed": qs_out.getvalue().splitlines(),
+          "eq3_err": qs["eq3_err"], "eq3_bound": qs["eq3_bound"],
+          "sketch_errors": qs["sketches"], "rsvd_err": qs["rsvd_err"],
+          "launches": qs_launches})
+    check(qs["satisfied"] and qs["eq3_err"] <= qs["eq3_bound"],
+          f"scaling (c): quickstart's eq. (3) {qs['eq3_err']} > "
+          f"{qs['eq3_bound']}")
+    check(qs_launches.get("fwht", 0) > 0
+          and qs_launches.get("sketch_accum", 0) > 0
+          and qs_launches.get("panel_step", 0) > 0,
+          f"scaling (c): quickstart's launches {qs_launches}")
+    emit({"phase": "scaling", "seconds": time.perf_counter() - scaling_t0})
 
     flash["launches"] += (mesh_flash + train_launches["flash"]
                           + moe_flash_launches

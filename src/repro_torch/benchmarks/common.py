@@ -12,7 +12,13 @@ from typing import Callable
 import torch
 
 __all__ = ["WARMUP", "ITERS", "time_fn", "emit", "append_json_rows",
-           "cli_parser", "finish", "randn"]
+           "cli_parser", "finish", "randn", "RECORD", "REFERENCE_RECORD",
+           "check_record"]
+
+# The port's bench record (``benchmarks.run``'s default, gitignored), and
+# the JAX harness's, which the port never writes or deletes.
+RECORD = "BENCH_torch.json"
+REFERENCE_RECORD = "BENCH_scaling.json"
 
 # Calls of ``fn`` per ``time_fn``: warm-up calls, then timed calls.
 WARMUP, ITERS = 2, 5
@@ -41,8 +47,18 @@ def time_fn(fn: Callable, warmup: int = WARMUP, iters: int = ITERS) -> float:
     return ts[len(ts) // 2]
 
 
+def check_record(path: str) -> str:
+    """``path``, unless it names the JAX harness's record."""
+    if os.path.basename(os.path.normpath(path)) == REFERENCE_RECORD:
+        raise ValueError(f"{path}: {REFERENCE_RECORD} is the JAX harness's "
+                         f"record; the port writes its own ({RECORD})")
+    return path
+
+
 def append_json_rows(path: str, rows: list[dict]) -> None:
-    """Append ``rows`` to the JSON list at ``path`` (created if absent)."""
+    """Append ``rows`` to the JSON list at ``path`` (created if absent;
+    never the JAX harness's record)."""
+    check_record(path)
     existing = []
     if os.path.exists(path):
         with open(path) as f:

@@ -73,11 +73,14 @@ AXIS = "ranks"
 
 def check_group(group, t: torch.Tensor) -> None:
     """Require a process group whose backend moves ``t``'s device: NCCL
-    for CUDA tensors, gloo for CPU tensors."""
+    for CUDA tensors, gloo for CPU tensors.  torch's fake backend (the
+    dry-run's: no peers, no data moved) takes either."""
     if not isinstance(group, dist.ProcessGroup):
         raise TypeError(f"group must be a torch.distributed.ProcessGroup, "
                         f"got {type(group).__name__}")
     backend = str(dist.get_backend(group))
+    if backend == "fake":
+        return
     need = "nccl" if t.device.type == "cuda" else "gloo"
     if need not in backend:
         raise ValueError(f"tensors on {t.device} need a {need} process "

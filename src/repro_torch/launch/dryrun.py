@@ -16,9 +16,16 @@ shards' ops under DTensor:
     during the step (the state included), beside the H100's 80 GB, and
     ``peak_by_origin``, those bytes by the op that made them; and
     ``param_bytes`` / ``grad_bytes`` / ``opt_bytes`` per device;
-  * ``collective_bytes`` by kind (the result bytes of each functional
-    collective, the reference's HLO measure) and ``collective_total``;
-  * ``interpod_bytes`` -- the bytes of collectives whose group spans pods.
+  * ``bytes_accessed`` -- each local op's operand and result bytes (views,
+    allocations and metadata queries move nothing and are not counted),
+    the counterpart of XLA's ``bytes accessed``;
+  * ``collective_bytes`` by kind (the result bytes of each collective,
+    functional or c10d's in-place ones, the reference's HLO measure) and
+    ``collective_total``;
+  * ``interpod_bytes`` -- the bytes of collectives whose group spans pods,
+    and ``interhost_bytes`` those whose group spans hosts of
+    ``CARDS_PER_HOST`` cards (NVLink within a host, the network beyond:
+    ``benchmarks.roofline``'s link terms).
 
 The flash op's fake kernel gives its output's shape alone, so no S x S
 scores are counted as the kernel's memory.
@@ -55,18 +62,29 @@ from ..configs import ALIASES, ARCHS, get_config
 from .mesh import axis_names, make_production_mesh
 from .shapes import SHAPES, ShapeCase, cell_applicable
 
-__all__ = ["ARTIFACT_DIR", "H100_HBM_BYTES", "run_cell", "measure_cell",
-           "join_fake_group"]
+__all__ = ["ARTIFACT_DIR", "H100_HBM_BYTES", "CARDS_PER_HOST", "run_cell",
+           "measure_cell", "join_fake_group"]
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "experiments", "dryrun_torch")
 H100_HBM_BYTES = 80e9
+# Cards an NVLink domain joins (an HGX / DGX H100 host).
+CARDS_PER_HOST = 8
 _WORLD = 512
 _COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                 "reduce_scatter_tensor": "reduce-scatter",
                 "all_reduce": "all-reduce",
                 "all_to_all_single": "all-to-all",
-                "broadcast": "broadcast"}
+                "broadcast": "broadcast",
+                # c10d's in-place ops (``dist.all_gather`` and the like)
+                "allgather_": "all-gather",
+                "_allgather_base_": "all-gather",
+                "allreduce_": "all-reduce",
+                "reduce_scatter_": "reduce-scatter",
+                "_reduce_scatter_base_": "reduce-scatter",
+                "alltoall_": "all-to-all",
+                "alltoall_base_": "all-to-all",
+                "broadcast_": "broadcast"}
 
 
 def join_fake_group(world: int = _WORLD) -> None:
@@ -81,33 +99,47 @@ def join_fake_group(world: int = _WORLD) -> None:
 
 class _Meter:
     """A dispatch mode over the local ops (DTensor ops are let through to
-    DTensor first, as ``CommDebugMode`` does): FLOPs, live storage bytes
-    and its peak, collective bytes by kind and across pods."""
+    DTensor first, as ``CommDebugMode`` does): FLOPs, bytes accessed, live
+    storage bytes and its peak, collective bytes by kind, across pods
+    (groups of ``chips_per_pod`` ranks) and across hosts
+    (``CARDS_PER_HOST``).
 
-    def __init__(self, chips_per_pod: int):
+    ``answer``, if given, answers the host's reads of a tensor's value
+    (``int()``, ``bool()``, ``.item()``: ``aten._local_scalar_dense``),
+    which fake tensors cannot: it takes the tensor and returns the value.
+    ``flop_formulas`` adds formulas by op packet to torch's registry."""
+
+    def __init__(self, chips_per_pod: int, *, answer=None,
+                 flop_formulas=None):
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils.flop_counter import flop_registry
         from torch.distributed.tensor import DTensor
         meter = self
+        registry = {**flop_registry, **(flop_formulas or {})}
+        read = torch.ops.aten._local_scalar_dense.default
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 if any(issubclass(t, DTensor) for t in types):
                     return NotImplemented
                 kwargs = kwargs or {}
+                if func is read and answer is not None:
+                    return answer(args[0])
                 out = func(*args, **kwargs)
-                meter._op(func, args, kwargs, out, flop_registry)
+                meter._op(func, args, kwargs, out, registry)
                 return out
 
         self.mode = Mode()
         self.chips_per_pod = chips_per_pod
         self.flops = 0
+        self.bytes = 0
         self.live: dict = {}
         self.cur = self.peak = 0
         self._at_peak: list = []
         self.coll: dict = {}
-        self.interpod = 0
-        self._spans: dict = {}
+        self.interpod = self.interhost = 0
+        self._spanning: dict = {}
+        self._moves: dict = {}
         self.paused = self.excluded = 0
 
     def __enter__(self):
@@ -179,15 +211,22 @@ class _Meter:
             by[origin] = by.get(origin, 0) + nb
         return dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
 
-    def _spans_pods(self, group_name: str) -> bool:
-        if group_name not in self._spans:
+    def _spans(self, group, size: int) -> bool:
+        """Whether ``group`` (a functional collective's group name, or the
+        process group a c10d op was given) spans blocks of ``size``
+        consecutive ranks (pods, hosts)."""
+        if isinstance(group, torch.ScriptObject):
+            group = dist.ProcessGroup.unbox(group)
+        if isinstance(group, dist.ProcessGroup):
+            group = group.group_name
+        key = (group, size)
+        if key not in self._spanning:
             from torch.distributed.distributed_c10d import \
                 _resolve_process_group
             ranks = dist.get_process_group_ranks(
-                _resolve_process_group(group_name))
-            self._spans[group_name] = len(
-                {r // self.chips_per_pod for r in ranks}) > 1
-        return self._spans[group_name]
+                _resolve_process_group(group))
+            self._spanning[key] = len({r // size for r in ranks}) > 1
+        return self._spanning[key]
 
     def _op(self, func, args, kwargs, out, registry) -> None:
         from torch.utils._pytree import tree_leaves
@@ -198,20 +237,45 @@ class _Meter:
         if formula is not None:
             self.flops += int(formula(*args, **kwargs, out_val=out))
         name = getattr(packet, "__name__", str(packet))
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        moves = self._moves.get(func)
+        if moves is None:
+            moves = self._moves[func] = _moves_data(func, name)
+        if moves:
+            self.bytes += _nbytes(args) + _nbytes(kwargs.values()) + \
+                _nbytes(outs)
         kind = _COLLECTIVES.get(name)
         if kind is not None and "c10d" in str(packet):
-            nb = sum(t.numel() * t.element_size() for t in tree_leaves(out)
-                     if isinstance(t, torch.Tensor))
+            nb = sum(t.numel() * t.element_size() for t in outs)
             self.coll[kind] = self.coll.get(kind, 0) + nb
             names = [a.name for a in func._schema.arguments]
-            group = (args[names.index("group_name")]
-                     if "group_name" in names[:len(args)]
-                     else kwargs.get("group_name"))
-            if group is not None and self._spans_pods(group):
-                self.interpod += nb
-        for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
-                self.track(t, name)
+            key = "group_name" if "group_name" in names else "process_group"
+            group = (args[names.index(key)] if key in names[:len(args)]
+                     else kwargs.get(key))
+            if group is not None:
+                self.interpod += nb * self._spans(group, self.chips_per_pod)
+                self.interhost += nb * self._spans(group, CARDS_PER_HOST)
+        for t in outs:
+            self.track(t, name)
+
+
+def _moves_data(func, name: str) -> bool:
+    """Whether ``func`` reads or writes elements: not a view, not an
+    allocation (``empty`` and the like: nothing written), not a ``prim``
+    query of a tensor's metadata (``prim.device``)."""
+    return not (func.is_view or func.namespace == "prim"
+                or name.startswith(("empty", "new_empty")))
+
+
+def _nbytes(items) -> int:
+    """Bytes of the tensors among ``items`` and in their lists."""
+    total = 0
+    for t in items:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (list, tuple)):
+            total += _nbytes(t)
+    return total
 
 
 def _local_bytes(tensors) -> int:
@@ -293,6 +357,7 @@ def measure_cell(cfg, case: ShapeCase, mesh, *, compress: bool = False,
     coll = dict(sorted(meter.coll.items()))
     return {
         "flops": float(meter.flops),
+        "bytes_accessed": float(meter.bytes),
         "peak_bytes_per_device": int(meter.peak),
         "param_bytes_per_device": _local_bytes(params),
         "grad_bytes_per_device": int(grad_bytes),
@@ -300,6 +365,7 @@ def measure_cell(cfg, case: ShapeCase, mesh, *, compress: bool = False,
         "collective_bytes": coll,
         "collective_total": float(sum(coll.values())),
         "interpod_bytes": float(meter.interpod),
+        "interhost_bytes": float(meter.interhost),
         "propagations_excluded": meter.excluded,
         "peak_by_origin": meter.peak_by_origin(),
         "hbm_bytes_per_device": H100_HBM_BYTES,

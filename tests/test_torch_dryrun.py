@@ -1,13 +1,16 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) on torch's fake
 backend, on the CPU.
 
-One rank subprocess (``torch_ranks.run_ranks``; it joins the fake group,
-the test process joins none) runs SMOKE granite-3-2b cells on a (2, 2, 2)
+Two subprocesses at once (``torch_ranks.start_ranks``; each joins the fake
+group, the test process joins none; the training cells in one, the rest
+and the CLI in the other) run SMOKE granite-3-2b cells on a (2, 2, 2)
 ("pod", "data", "model") mesh of the 512-rank fake world: a training cell
 (8 x 64), a decode cell and a prefill cell over ``BLOCKWISE_THRESHOLD``
 (2 x 4096, the flash op), and the training cell again on a (1, 1) mesh,
-and in f32 with one token a row; then the CLI runs whisper-tiny's decode_32k cell at full width and
-writes its record (under the gitignored ``experiments/dryrun_torch/``).
+and in f32 with one token a row; then, in the second process, the CLI runs
+whisper-tiny's decode_32k cell at full width in a 512-rank fake group of
+its own and writes its record (under the gitignored
+``experiments/dryrun_torch/``).
 Held: every cell's ``status`` is ``"ok"`` with the record's keys; the
 parameter bytes a device equal the sum of the local shards worked out
 from the REFERENCE's ``param_specs`` on the same stand-in mesh; a (1, 1)
@@ -27,35 +30,57 @@ jax = pytest.importorskip("jax")
 from repro import configs as jcfgs  # noqa: E402
 from repro.launch import sharding as jsharding  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
-from torch_ranks import failures, pin_threads, run_ranks  # noqa: E402
+from torch_ranks import failures, pin_threads, start_ranks  # noqa: E402
 
 pin_threads()
 
 _PROGRAM = r"""
-import json
+import contextlib, io, json, runpy, sys, traceback
+import torch
+import torch.distributed as dist
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.launch.shapes import ShapeCase
+OUT = {}
+part = sys.argv[3]
+
+# 1. the dry-run's cells (part "a": the training cells; "b": decode and
+# prefill, then the CLI)
 dryrun.join_fake_group()
 cfg = get_smoke_config("granite_3_2b")
 mesh = make_elastic_mesh((2, 2, 2), ("pod", "data", "model"),
                          device_type="cpu")
 one = make_elastic_mesh((1, 1), ("data", "model"), device_type="cpu")
-out = {}
-# The one-token cell first: DTensor caches its propagation by op and
-# shapes, and a cold cache is where a meter that counted those runs would
-# show.
+cells = {}
 for name, case, m in (("token_1x1", ShapeCase("train", 1, 8, "train"), one),
                       ("train", ShapeCase("train", 64, 8, "train"), mesh),
                       ("decode", ShapeCase("decode", 64, 8, "decode"), mesh),
                       ("prefill", ShapeCase("prefill", 4096, 2, "prefill"),
                        mesh),
                       ("train_1x1", ShapeCase("train", 64, 8, "train"), one)):
+    if (part == "a") != (case.kind == "train"):
+        continue
     c = cfg.replace(dtype="float32") if name == "token_1x1" else cfg
-    out[name] = dryrun.run_cell("granite_3_2b", "train_4k", name, cfg=c,
-                                case=case, mesh=m, save=False)
-print(json.dumps(out))
+    cells[name] = dryrun.run_cell("granite_3_2b", "train_4k", name, cfg=c,
+                                  case=case, mesh=m, save=False)
+OUT["cells"] = cells
+dist.destroy_process_group()
+if part == "a":
+    print(json.dumps(OUT))
+    sys.exit(0)
+
+# 2. the dry-run CLI: its own 512-rank fake group, one cell, its record
+sys.argv = ["dryrun", "--cell", "whisper-tiny:decode_32k:pod", "--jsonl"]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    try:
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = e.code
+OUT["cli"] = {"exit": code, "lines": buf.getvalue().splitlines()}
+print(json.dumps(OUT))
 """
 
 KEYS = ("status", "flops", "peak_bytes_per_device", "param_bytes_per_device",
@@ -65,10 +90,22 @@ KEYS = ("status", "flops", "peak_bytes_per_device", "param_bytes_per_device",
 
 
 @pytest.fixture(scope="module")
-def cells():
-    res = run_ranks(_PROGRAM, 1, timeout=400, OMP_NUM_THREADS="1")
-    assert not failures(res), failures(res)
-    return json.loads(res[0][1].strip().splitlines()[-1])
+def results():
+    """The program's two parts at once, one process each: ``cells``
+    (records by name) and ``cli`` (the CLI's exit code and output lines)."""
+    waits = [start_ranks(_PROGRAM, 1, part, timeout=600, OMP_NUM_THREADS="1")
+             for part in "ab"]
+    a, b = (w() for w in waits)
+    assert not failures(a + b), failures(a + b)
+    out_a, out_b = (json.loads(r[0][1].strip().splitlines()[-1])
+                    for r in (a, b))
+    return {"cells": {**out_a["cells"], **out_b["cells"]},
+            "cli": out_b["cli"]}
+
+
+@pytest.fixture(scope="module")
+def cells(results):
+    return results["cells"]
 
 
 @pytest.mark.parametrize("name", ["train", "decode", "prefill", "train_1x1",
@@ -149,16 +186,11 @@ def test_long_prefill_counts_no_scores(cells):
     assert rec["flops"] > 4 * B * cfg.n_heads * cfg.hd * S * S / 2 / 8
 
 
-def test_cli_writes_its_record():
+def test_cli_writes_its_record(results):
     from repro_torch.launch.dryrun import ARTIFACT_DIR
-    res = run_ranks(
-        "import sys, runpy\n"
-        "sys.argv = ['dryrun', '--cell', 'whisper-tiny:decode_32k:pod',"
-        " '--jsonl']\n"
-        "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n",
-        1, timeout=300, OMP_NUM_THREADS="1")
-    assert not failures(res), failures(res)
-    rec = json.loads(res[0][1].strip().splitlines()[-1])
+    cli = results["cli"]
+    assert cli["exit"] == 0, cli["lines"][-5:]
+    rec = json.loads(cli["lines"][-1])
     assert rec["status"] == "ok" and rec["mesh_shape"] == [16, 16]
     with open(os.path.join(ARTIFACT_DIR,
                            "whisper_tiny_decode_32k_pod.json")) as f:

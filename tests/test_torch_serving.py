@@ -29,10 +29,22 @@ from repro_torch.serving import (GenerationRequest, ServeEngine,  # noqa: E402
 from repro_torch.serving.compress import (LowRankWeight,  # noqa: E402
                                           apply_low_rank)
 from torch_ranks import pin_threads  # noqa: E402
+from repro.core import rsvd as _jrsvd  # noqa: E402
 
 pin_threads()
 
 ARCH = "granite_3_2b"
+
+# The reference's probing RSVD, jitted once (by shape) and shared: eager,
+# its compress_params dispatches every op of every leaf's RSVD one by one.
+_JIT_RSVD = jax.jit(_jrsvd, static_argnums=(2,),
+                    static_argnames=("l", "sketch_kind", "qr_impl", "qr_panel",
+                                     "qr_norm_recompute"))
+
+
+@pytest.fixture
+def jitted_reference_rsvd(monkeypatch):
+    monkeypatch.setattr(jcompress, "rsvd", _JIT_RSVD)
 
 
 @pytest.fixture(scope="module")
@@ -397,7 +409,7 @@ def _planted_tree(rng):
     return W_lr, wo
 
 
-def test_compress_params_factor_low_rank():
+def test_compress_params_factor_low_rank(jitted_reference_rsvd):
     """A planted exactly low-rank weight is factored (by both packages)
     and exact; a full-rank one stays dense."""
     W_lr, wo = _planted_tree(np.random.default_rng(0))
@@ -479,7 +491,8 @@ def test_compress_module_reports_every_projection(models):
         assert tuple(leaf.shape) == tuple(model.get_parameter(name).shape)
 
 
-def test_compress_params_decides_per_projection_like_reference():
+def test_compress_params_decides_per_projection_like_reference(
+        jitted_reference_rsvd):
     """One projection is exactly rank 4 in every layer but one, where it
     is a flat-spectrum Gaussian (top-4 energy about 0.11 at 128 x 128,
     far under 0.95); another is exactly rank 4 in every layer.  Both

@@ -3,17 +3,20 @@ held to the JAX reference.
 
 Every case runs in rank subprocesses (``torch_ranks.start_ranks``, one
 torch import each, ``OMP_NUM_THREADS=1``); no test process joins a
-group.  Two rank programs
-hold all the cases.  Each rank prints one JSON line of results (per-step
-losses and grad norms among them) and writes its logits and greedy tokens
-to a file; the tests below read them.  While the world-4 ranks run, this
-process runs the reference (``repro``'s ``make_train_step``, ``prefill``
-and ``decode_step``, each jitted once) on ``params_to_numpy`` of the same
-``init_params`` seed, the same batches (``data.batch_for_step``) and the
-tokens the ranks fed.  The reference's step without an entered mesh is
-its sharded step's math, so every sharded case is held to it.
+group.  Two rank programs hold all the cases: one of eight ranks (the
+world-4 cases on two halves of four at once, then the world-8 drill on
+all eight) and one of one rank.  Each rank prints one JSON line of
+results (per-step losses and grad norms among them) and writes its
+logits and greedy tokens to a file; the tests below read them.  While
+the eight ranks run, this process runs the reference (``repro``'s
+``make_train_step``, ``prefill`` and ``decode_step``, each jitted once) on
+``params_to_numpy`` of the same ``init_params`` seed, the same batches
+(``data.batch_for_step``) and the tokens the ranks fed.  The reference's
+step without an entered mesh is its sharded step's math, so every sharded
+case is held to it.
 
-World 4.  On a (2, 2) ("data", "model") mesh, SMOKE granite-3-2b in f32:
+World 4.  On a (2, 2) ("data", "model") mesh over ranks 0-3, SMOKE
+granite-3-2b in f32:
 three sharded train steps in modes ``tp`` and ``fsdp`` and with
 ``cast_params``, their losses and grad norms against the reference's
 step with the same ``TrainConfig``; each rank's local shard of every
@@ -21,7 +24,8 @@ parameter against the block the reference's ``NamedSharding`` gives it
 (worked out from the spec, which equals the reference's:
 ``test_torch_sharding``); the sharded prefill and four greedy decode
 steps against the reference's ``prefill`` / ``decode_step`` (logits, and
-the greedy tokens equal).  On a (1, 4) mesh, whose `model` axis divides
+the greedy tokens equal).  At the same time, on a (1, 4) mesh over ranks
+4-7, whose `model` axis divides
 phi3.5-moe's 4 experts (EP) and not a 6-expert qwen2-moe (TP-MoE): a train
 step and prefill + decode of each, in f32 with a dropless capacity; and
 qwen2-7b with 6 heads (not a multiple of 4) on a 64-token prompt over a
@@ -68,8 +72,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro_torch import models as tmodels  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data import SyntheticConfig, batch_for_step  # noqa: E402
-from torch_ranks import (failures, pin_threads, run_ranks,  # noqa: E402
-                         start_ranks)
+from torch_ranks import failures, pin_threads, start_ranks  # noqa: E402
 
 pin_threads()
 
@@ -119,7 +122,8 @@ def train(cfg, tcfg, n, mesh=None, B=8, S=32):
     return st, out
 """
 
-_WORLD4 = _COMMON + r"""
+_RANKS = _COMMON + r"""
+
 def serve(name, cfg, mesh, P, B=4, new=4):
     # The sharded prefill and greedy decode from init_params(1): the
     # last-position logits of each call and the tokens fed, to a file.
@@ -142,73 +146,83 @@ def serve(name, cfg, mesh, P, B=4, new=4):
              fed=torch.cat(fed, 1).numpy())
 
 
+# The world-4 cases on two halves of four ranks at once: ranks 0-3 on a
+# (2, 2) ("data", "model") mesh, ranks 4-7 on a (1, 4) one.  Every rank
+# builds both meshes (their groups are collective over the world).
+from torch.distributed.device_mesh import DeviceMesh
+mesh22 = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                    mesh_dim_names=("data", "model"))
+mesh4 = DeviceMesh("cpu", torch.arange(4, 8).reshape(1, 4),
+                   mesh_dim_names=("data", "model"))
 granite = get_smoke_config("granite_3_2b").replace(dtype="float32")
-mesh = make_host_mesh(model=2, device_type="cpu")
-OUT["mesh"] = list(mesh.shape)
-for name, tc in (("tp", steps.TrainConfig()),
-                 ("fsdp", steps.TrainConfig(sharding_mode="fsdp")),
-                 ("tp+cast", steps.TrainConfig(cast_params=True))):
-    st, OUT[name] = train(granite, tc, 3, mesh)
-    if name == "tp":
-        # each rank's shard of every parameter against its JAX block
-        full = models.init_params(0, granite, device="cpu")
-        specs = sharding.param_specs(granite, full, mesh)
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-        init = steps.init_train_state(0, granite, tc, device="cpu", mesh=mesh)
-        bad = []
-        for k, p in init.params.named_parameters():
-            blk = full.get_parameter(k).detach()
-            for d, ax in enumerate(specs[k]):
-                group = () if ax is None else (
-                    ax if isinstance(ax, tuple) else (ax,))
-                n, idx = 1, 0
-                for a in group:
-                    n *= sizes[a]
-                    idx = idx * sizes[a] + coord[a]
-                L = blk.shape[d]
-                blk = blk.narrow(d, idx * L // n, L // n)
-            if not torch.equal(p.to_local(), blk):
-                bad.append(k)
-        OUT["blocks"] = {"checked": len(specs), "bad": bad}
-serve("tp", granite, mesh, 32)
+mesh = mesh22
+if rank < 4:
+    OUT["mesh"] = list(mesh.shape)
+    for name, tc in (("tp", steps.TrainConfig()),
+                     ("fsdp", steps.TrainConfig(sharding_mode="fsdp")),
+                     ("tp+cast", steps.TrainConfig(cast_params=True))):
+        st, OUT[name] = train(granite, tc, 3, mesh)
+        if name == "tp":
+            # each rank's shard of every parameter against its JAX block
+            full = models.init_params(0, granite, device="cpu")
+            specs = sharding.param_specs(granite, full, mesh)
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            init = steps.init_train_state(0, granite, tc, device="cpu",
+                                          mesh=mesh)
+            bad = []
+            for k, p in init.params.named_parameters():
+                blk = full.get_parameter(k).detach()
+                for d, ax in enumerate(specs[k]):
+                    group = () if ax is None else (
+                        ax if isinstance(ax, tuple) else (ax,))
+                    n, idx = 1, 0
+                    for a in group:
+                        n *= sizes[a]
+                        idx = idx * sizes[a] + coord[a]
+                    L = blk.shape[d]
+                    blk = blk.narrow(d, idx * L // n, L // n)
+                if not torch.equal(p.to_local(), blk):
+                    bad.append(k)
+            OUT["blocks"] = {"checked": len(specs), "bad": bad}
+    serve("tp", granite, mesh, 32)
+    # a DTensor reaching a kernel without a sharded wrapper
+    from torch.distributed.tensor import Replicate
+    from repro_torch.kernels.sketch_accum import sketch_accum
+    dt = DTensor.from_local(torch.ones(2, 2), mesh, [Replicate()] * 2,
+                            run_check=False)
+    try:
+        sketch_accum(dt, dt)
+        OUT["kernel_refuses"] = None
+    except TypeError as e:
+        OUT["kernel_refuses"] = str(e)
+else:
+    OUT["mesh14"] = list(mesh4.shape)
+    # EP and TP-MoE on a (1, 4) mesh, dropless
+    for name, arch, edit in (("ep", "phi35_moe", {}),
+                             ("tp_moe", "qwen2_moe_a2_7b", {"n_experts": 6})):
+        cfg = get_smoke_config(arch).replace(dtype="float32",
+                                             moe_capacity_factor=8.0, **edit)
+        st, OUT[name] = train(cfg, steps.TrainConfig(), 1, mesh4)
+        w = st.params.blocks[0].moe.w_gate
+        OUT[name + "_layout"] = {"ep": cfg.n_experts % 4 == 0,
+                                 "w_gate_local": list(w.to_local().shape)}
+        serve(name, cfg, mesh4, 32)
 
-# EP and TP-MoE on a (1, 4) mesh, dropless
-mesh4 = make_host_mesh(model=4, device_type="cpu")
-for name, arch, edit in (("ep", "phi35_moe", {}),
-                         ("tp_moe", "qwen2_moe_a2_7b", {"n_experts": 6})):
-    cfg = get_smoke_config(arch).replace(dtype="float32",
-                                         moe_capacity_factor=8.0, **edit)
-    st, OUT[name] = train(cfg, steps.TrainConfig(), 1, mesh4)
-    w = st.params.blocks[0].moe.w_gate
-    OUT[name + "_layout"] = {"ep": cfg.n_experts % 4 == 0,
-                             "w_gate_local": list(w.to_local().shape)}
-    serve(name, cfg, mesh4, 32)
+    # heads padded: 6 heads on a 4-wide model axis, a blockwise prompt
+    default_threshold = attention.BLOCKWISE_THRESHOLD
+    attention.BLOCKWISE_THRESHOLD = 40
+    cfg = get_smoke_config("qwen2_7b").replace(dtype="float32", n_heads=6,
+                                               n_kv_heads=2, head_dim=16)
+    with use_mesh(mesh4):
+        OUT["padded_heads"] = attention._padded_heads(cfg.n_heads)
+    _, OUT["padded"] = train(cfg, steps.TrainConfig(), 1, mesh4, S=64)
+    serve("padded", cfg, mesh4, 64)
+    attention.BLOCKWISE_THRESHOLD = default_threshold
+dist.barrier()
 
-# heads padded: 6 heads on a 4-wide model axis, a blockwise prompt
-attention.BLOCKWISE_THRESHOLD = 40
-cfg = get_smoke_config("qwen2_7b").replace(dtype="float32", n_heads=6,
-                                           n_kv_heads=2, head_dim=16)
-with use_mesh(mesh4):
-    OUT["padded_heads"] = attention._padded_heads(cfg.n_heads)
-_, OUT["padded"] = train(cfg, steps.TrainConfig(), 1, mesh4, S=64)
-serve("padded", cfg, mesh4, 64)
+# The world-8 drill on all eight ranks.
 
-# a DTensor reaching a kernel without a sharded wrapper
-from torch.distributed.tensor import Replicate
-from repro_torch.kernels.sketch_accum import sketch_accum
-dt = DTensor.from_local(torch.ones(2, 2), mesh, [Replicate()] * 2,
-                        run_check=False)
-try:
-    sketch_accum(dt, dt)
-    OUT["kernel_refuses"] = None
-except TypeError as e:
-    OUT["kernel_refuses"] = str(e)
-print(json.dumps(OUT))
-dist.destroy_process_group()
-"""
-
-_WORLD8 = _COMMON + r"""
 from repro_torch.checkpoint import restore_pytree, save_pytree
 from repro_torch.launch.train import train_loop
 from repro_torch.optim import CompressorConfig
@@ -343,11 +357,14 @@ def _reference(arch, edit, n_steps, seq, prompt_len):
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory):
-    """(each rank's JSON line, each case's logits files, the reference's
-    per-step metrics and its serving function by case)."""
-    work = tmp_path_factory.mktemp("world4")
-    wait = start_ranks(_WORLD4, 4, str(work / "store"), timeout=400,
+def ranks(tmp_path_factory):
+    """(each rank's JSON line, each case's logits files by rank, the
+    reference's per-step metrics and its serving function by case) of the
+    one eight-rank program; the reference runs here while the ranks do.
+    The one-rank program starts once the eight ranks have ended, beside
+    the reference's serving below (the ``one_rank`` fixture waits)."""
+    work = tmp_path_factory.mktemp("ranks")
+    wait = start_ranks(_RANKS, 8, str(work / "store"), timeout=600,
                        OMP_NUM_THREADS="1")
     ref, default = {}, jattn.BLOCKWISE_THRESHOLD
     with pytest.MonkeyPatch.context() as mp:
@@ -361,6 +378,9 @@ def world4(tmp_path_factory):
             train, serve = _reference(arch, edit, n, seq, prompt)
             ref[case] = (train(tcfg), serve if prompt else None)
         outs = _outputs(wait())
+        _ONE_RANK_WAIT.append(start_ranks(
+            _ONE_RANK, 1, str(tmp_path_factory.mktemp("world1") / "store"),
+            timeout=200, OMP_NUM_THREADS="1"))
         # the reference serves the tokens the ranks fed (patched as above
         # for the padded case, which runs last)
         served = {}
@@ -369,10 +389,19 @@ def world4(tmp_path_factory):
                 continue
             mp.setattr(jattn, "BLOCKWISE_THRESHOLD",
                        PADDED_THRESHOLD if case == "padded" else default)
-            files = [np.load(work / f"{case}_r{r}.npz") for r in range(4)]
+            half = range(4) if case == "tp" else range(4, 8)
+            files = [np.load(work / f"{case}_r{r}.npz") for r in half]
             want = ref[case][1](files[0]["prompt"], files[0]["fed"])
             served[case] = (files, want)
     return outs, ref, served
+
+
+@pytest.fixture(scope="module")
+def world4(ranks):
+    """The world-4 cases: each of the four entries joins rank ``i``'s
+    results on the (2, 2) mesh with rank ``4 + i``'s on the (1, 4) one."""
+    outs, ref, served = ranks
+    return [{**outs[i], **outs[4 + i]} for i in range(4)], ref, served
 
 
 def _rel(a, b):
@@ -444,10 +473,8 @@ def test_a_dtensor_reaching_another_kernel_raises(world4):
 
 
 @pytest.fixture(scope="module")
-def world8(tmp_path_factory):
-    store = tmp_path_factory.mktemp("world8") / "store"
-    return _outputs(run_ranks(_WORLD8, 8, str(store), timeout=400,
-                              OMP_NUM_THREADS="1"))
+def world8(ranks):
+    return ranks[0]
 
 
 def test_randlr_on_a_pod_mesh_stays_near_dense(world8):
@@ -539,11 +566,13 @@ dist.destroy_process_group()
 """
 
 
+_ONE_RANK_WAIT: list = []
+
+
 @pytest.fixture(scope="module")
-def one_rank(tmp_path_factory):
-    store = tmp_path_factory.mktemp("world1") / "store"
-    res = run_ranks(_ONE_RANK, 1, str(store), timeout=200,
-                    OMP_NUM_THREADS="1")
+def one_rank(ranks, tmp_path_factory):
+    """The one-rank program's output (started after the eight ranks)."""
+    res = _ONE_RANK_WAIT.pop()()
     assert not failures(res), failures(res)
     return res[0][1]
 

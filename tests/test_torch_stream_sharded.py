@@ -150,7 +150,12 @@ elif mode == "resume":
     out["resumed_from"] = [a["chunks_done"] for sp in tr.spans
                            for name, _, a in sp.events
                            if name == "stream.resume"]
-print(json.dumps(out))
+print(json.dumps(out), flush=True)
+if mode == "kill":
+    # The survivor leaves without tearing its gloo group down: with the
+    # peer dead, gloo's teardown can abort the process after the result
+    # is out ("terminate called without an active exception").
+    os._exit(0)
 """
 
 
